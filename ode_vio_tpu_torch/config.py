@@ -1,0 +1,110 @@
+"""Typed configuration of the PyTorch port.
+
+The port's copy of the solver and model dataclasses of the JAX package
+(``ode_vio_tpu/config.py``): same field names, same defaults, so a
+configuration reads the same in both packages. Only the fields that a
+ported module reads are here; the others (CDE/RDE cores, training,
+the s2d and int8 encoder rewrites) come with the modules that read them.
+
+One knob changes meaning: the JAX package's ``use_pallas`` tri-state
+becomes :attr:`ModelConfig.use_kernels`, the switch for the port's
+hand-written CUDA kernels. Its auto setting differs on purpose: the JAX
+package leaves its fused ODE kernel off for ode-rnn by default, the port
+turns its kernel on for every CUDA tensor, because that kernel is what
+the port's inference path is built around.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import torch
+
+
+@dataclass(frozen=True)
+class SolverConfig:
+    """Adaptive solver operating point (ODE-RNN reference: dopri5, rtol
+    1e-2, atol 1e-6, dt0 1e-4)."""
+
+    # an adaptive method with an error estimate: adaptive_heun | heun |
+    # midpoint | bosh3 | fehlberg2 | tsit5 | dopri5
+    method: str = "dopri5"
+    rtol: float = 1e-2
+    atol: float = 1e-6
+    dt0: float = 1e-4
+    max_steps: int = 64          # inference step budget per interval
+    safety: float = 0.9          # step controller safety factor
+    factor_min: float = 0.2      # max step shrink per step
+    factor_max: float = 10.0     # max step growth per step
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Model family and architecture hyperparameters."""
+
+    model_type: str = "ode-rnn"  # ode-rnn (rnn | cde | rde | ltc | cfc: not ported)
+    img_w: int = 512
+    img_h: int = 256
+    v_f_len: int = 512           # visual feature length
+    i_f_len: int = 256           # inertial feature length
+    imu_dropout: float = 0.0
+    seq_len: int = 11            # images per window
+    fuse_method: str = "cat"     # cat | soft | hard
+
+    ode_hidden_dim: int = 512
+    ode_fn_num_layers: int = 3
+    ode_activation_fn: str = "tanh"  # tanh | relu | leaky_relu | softplus
+    ode_rnn_type: str = "rnn"    # rnn | gru
+    rnn_num_layers: int = 2
+
+    # encoders run in `compute_dtype`, the solver state in float32
+    compute_dtype: str = "bfloat16"
+    # set by the BatchNorm-folding inference path (models/fold.py): the
+    # encoders carry the folded shift in their conv bias and run no BN
+    skip_bn: bool = False
+    # The port's kernels (ops/cuda_kernels.py). None = auto: on for CUDA
+    # tensors, off on the CPU. False takes the solver-core path
+    # (ops/solvers/odeint.py), as use_pallas=False does in JAX.
+    use_kernels: bool | None = None
+
+    @property
+    def f_len(self) -> int:
+        return self.v_f_len + self.i_f_len
+
+    def resolved_use_kernels(self, device: torch.device) -> bool:
+        """An explicit flag wins; auto means "on for CUDA tensors"."""
+        if self.use_kernels is not None:
+            return self.use_kernels
+        return torch.device(device).type == "cuda"
+
+
+@dataclass(frozen=True)
+class Config:
+    model: ModelConfig = field(default_factory=ModelConfig)
+    solver: SolverConfig = field(default_factory=SolverConfig)
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on. A CUDA device that is not there
+    is an error, never a quiet switch to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device} requested but CUDA is not available; "
+            "pass device='cpu' to run on the CPU")
+    return device
+
+
+def flagship_config() -> Config:
+    """The canonical ODE-VIO configuration: softplus ODE MLP with 2 hidden
+    layers of 1024, 3 RNN layers, soft fusion, 256x512 images, seq_len 11."""
+    return Config(
+        model=ModelConfig(
+            model_type="ode-rnn",
+            ode_activation_fn="softplus",
+            ode_fn_num_layers=2,
+            ode_hidden_dim=1024,
+            rnn_num_layers=3,
+            fuse_method="soft",
+        ),
+    )

@@ -1,0 +1,90 @@
+"""Weight bridge: JAX variables -> the port's reference-layout state_dict.
+
+:func:`from_jax_variables` takes the JAX model's ``{'params',
+'batch_stats'}`` tree as nested dicts (and lists) of numpy arrays and
+returns the tensors that ``DeepVIO.load_state_dict(strict=True)``
+accepts. Layout rules (those of ``ode_vio_tpu/models/convert.py``):
+
+* Conv2d kernels HWIO -> OIHW; Conv1d kernels KIO -> OIK.
+* Dense kernels (in, out) -> Linear weights (out, in).
+* ``visual_head`` rows come in the JAX HWC flatten order and go to the
+  reference's CHW order; ``proj`` rows come L-major (11, 256) and go
+  C-major (256, 11).
+* The MLP and RNN-cell params are already in the torch (out, in) layout.
+* BatchNorm scale/bias/mean/var map to weight/bias/running_mean/
+  running_var, plus a zero ``num_batches_tracked``. A BN-folded tree (no
+  bn entries, conv biases present) converts too.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from ode_vio_tpu_torch.config import ModelConfig
+from ode_vio_tpu_torch.models.encoders import IMU_CHANNELS, IMU_FREQ, TRUNK_NAMES, trunk_out_hw
+
+
+def _rows_to_cmajor(w: np.ndarray, c: int, h: int, wd: int) -> np.ndarray:
+    """Rows of ``w`` in (h, w, c) order -> (c, h, w) order."""
+    return w.reshape(h, wd, c, -1).transpose(2, 0, 1, 3).reshape(c * h * wd, -1)
+
+
+def _bn(sd: dict, key: str, params: Mapping, stats: Mapping) -> None:
+    sd[f"{key}.weight"] = params["scale"]
+    sd[f"{key}.bias"] = params["bias"]
+    sd[f"{key}.running_mean"] = stats["mean"]
+    sd[f"{key}.running_var"] = stats["var"]
+    sd[f"{key}.num_batches_tracked"] = np.zeros((), np.int64)
+
+
+def _dense(sd: dict, key: str, dense: Mapping) -> None:
+    sd[f"{key}.weight"] = np.asarray(dense["kernel"]).T
+    sd[f"{key}.bias"] = dense["bias"]
+
+
+def from_jax_variables(variables: Mapping[str, Any], cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    sd: Dict[str, Any] = {}
+
+    img, img_s = params["image_encoder"], stats.get("image_encoder", {})
+    for i, name in enumerate(TRUNK_NAMES):
+        block = img[f"block{i}"]
+        sd[f"Image_net.{name}.0.weight"] = np.asarray(block["conv"]["kernel"]).transpose(3, 2, 0, 1)
+        if "bias" in block["conv"]:
+            sd[f"Image_net.{name}.0.bias"] = block["conv"]["bias"]
+        if "bn" in block:
+            _bn(sd, f"Image_net.{name}.1", block["bn"], img_s[f"block{i}"]["bn"])
+    h, wd = trunk_out_hw(cfg.img_h, cfg.img_w)
+    head = np.asarray(img["visual_head"]["kernel"])
+    sd["Image_net.visual_head.weight"] = _rows_to_cmajor(head, head.shape[0] // (h * wd), h, wd).T
+    sd["Image_net.visual_head.bias"] = img["visual_head"]["bias"]
+
+    imu, imu_s = params["inertial_encoder"], stats.get("inertial_encoder", {})
+    for j in range(len(IMU_CHANNELS)):
+        conv = f"Inertial_net.encoder_conv.{4 * j}"
+        sd[f"{conv}.weight"] = np.asarray(imu[f"conv{j}"]["kernel"]).transpose(2, 1, 0)
+        sd[f"{conv}.bias"] = imu[f"conv{j}"]["bias"]
+        if f"bn{j}" in imu:
+            _bn(sd, f"Inertial_net.encoder_conv.{4 * j + 1}", imu[f"bn{j}"], imu_s[f"bn{j}"])
+    proj = np.asarray(imu["proj"]["kernel"])
+    sd["Inertial_net.proj.weight"] = _rows_to_cmajor(proj, IMU_CHANNELS[-1], 1, IMU_FREQ + 1).T
+    sd["Inertial_net.proj.bias"] = imu["proj"]["bias"]
+
+    pose = params["pose_net"]
+    if "fuse" in pose:
+        _dense(sd, "Pose_net.fuse.net.0", pose["fuse"]["gate"])
+    for i, layer in enumerate(pose["ode_func"]):
+        sd[f"Pose_net.ode_func.net.{2 * i}.weight"] = layer["w"]
+        sd[f"Pose_net.ode_func.net.{2 * i}.bias"] = layer["b"]
+    for k, cell in enumerate(pose["rnn"]):
+        for ours, theirs in (("w_ih", "weight_ih"), ("w_hh", "weight_hh"),
+                             ("b_ih", "bias_ih"), ("b_hh", "bias_hh")):
+            sd[f"Pose_net.rnn.{theirs}_l{k}"] = cell[ours]
+    _dense(sd, "Pose_net.regressor.0", pose["regressor"]["fc0"])
+    _dense(sd, "Pose_net.regressor.2", pose["regressor"]["fc1"])
+
+    return {k: torch.tensor(np.asarray(v)) for k, v in sd.items()}

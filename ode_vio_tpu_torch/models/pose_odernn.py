@@ -1,0 +1,136 @@
+"""PoseODERNN, the flagship ODE-RNN pose core, inference forward
+(counterpart of ``ode_vio_tpu/models/pose_odernn.py``).
+
+Per frame interval, the hidden states of all L layers and B lanes fold
+into one (L*B, F) adaptive solve of dh/dt = MLP(h); the RNN stack then
+takes the fused features. The controller's final step size warm-starts
+the next interval's solve, per row; each window starts from ``dt0``.
+Timestamps are re-based to 0 only when no carried state is given.
+
+The solve runs the fused CUDA kernel (``ops/cuda_kernels.py``) when
+``use_kernels`` resolves on (auto: CUDA tensors), else the solver core
+(``ops/solvers/odeint.py``).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+from torch import nn
+
+from ode_vio_tpu_torch.config import ModelConfig, SolverConfig
+from ode_vio_tpu_torch.models.common import PoseRegressor
+from ode_vio_tpu_torch.models.fusion import FusionModule
+from ode_vio_tpu_torch.ops.cuda_kernels import fused_ode_solve
+from ode_vio_tpu_torch.ops.mlp import apply_mlp, get_activation, ode_func_sizes
+from ode_vio_tpu_torch.ops.rnn_cells import step_stack
+from ode_vio_tpu_torch.ops.solvers.odeint import SolverOptions, solve_ivp_dt
+
+
+class SolveStats(NamedTuple):
+    """Step counts of one forward: totals of accepted and rejected steps,
+    and per lane (B,) the (layer, interval) solves that ran out of
+    ``max_steps`` before reaching their interval's end."""
+
+    accepted: torch.Tensor
+    rejected: torch.Tensor
+    incomplete: torch.Tensor
+
+
+class Activation(nn.Module):
+    def __init__(self, name: str):
+        super().__init__()
+        self.name = name
+        self.fn = get_activation(name)
+
+    def forward(self, x):
+        return self.fn(x)
+
+
+class ODEFunc(nn.Module):
+    """The autonomous latent field f(t, h) = MLP(h), tanh-bounded; linear
+    layers at the reference indices ``net.0``, ``net.2``, ..."""
+
+    def __init__(self, sizes, activation: str):
+        super().__init__()
+        self.activation = activation
+        mods = []
+        for i in range(len(sizes) - 1):
+            mods.append(nn.Linear(sizes[i], sizes[i + 1]))
+            mods.append(Activation(activation) if i < len(sizes) - 2 else nn.Tanh())
+        self.net = nn.Sequential(*mods)
+
+    def layers(self):
+        return [(m.weight, m.bias) for m in self.net if isinstance(m, nn.Linear)]
+
+    def forward(self, t, y):
+        return apply_mlp(self.layers(), y, self.activation)
+
+
+class PoseODERNN(nn.Module):
+    def __init__(self, cfg: ModelConfig, solver: SolverConfig):
+        super().__init__()
+        if cfg.ode_rnn_type not in ("rnn", "gru"):
+            raise ValueError(f"ode_rnn_type '{cfg.ode_rnn_type}' not supported; "
+                             "choose rnn or gru")
+        self.cfg = cfg
+        self.opts = SolverOptions.from_config(solver)
+        F = cfg.f_len
+        self.fuse = FusionModule(F, cfg.fuse_method)
+        self.ode_func = ODEFunc(
+            ode_func_sizes(F, cfg.ode_hidden_dim, cfg.ode_fn_num_layers),
+            cfg.ode_activation_fn)
+        rnn = nn.GRU if cfg.ode_rnn_type == "gru" else nn.RNN
+        self.rnn = rnn(F, F, cfg.rnn_num_layers)
+        self.regressor = PoseRegressor(F)
+
+    def _cells(self):
+        return [{"w_ih": getattr(self.rnn, f"weight_ih_l{l}"),
+                 "w_hh": getattr(self.rnn, f"weight_hh_l{l}"),
+                 "b_ih": getattr(self.rnn, f"bias_ih_l{l}"),
+                 "b_hh": getattr(self.rnn, f"bias_hh_l{l}")}
+                for l in range(self.rnn.num_layers)]
+
+    def forward(self, fv: torch.Tensor, fi: torch.Tensor, ts: torch.Tensor,
+                prev: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        """fv (B, S-1, v_f_len), fi (B, S-1, i_f_len), ts (B, S), prev
+        (L, B, F) carried hidden or None. Returns (poses (B, S-1, 6),
+        hidden (L, B, F), SolveStats)."""
+        cfg, opts = self.cfg, self.opts
+        F, L = cfg.f_len, cfg.rnn_num_layers
+        B, steps, _ = fv.shape
+        fused = self.fuse(fv, fi, generator)
+        h = fused.new_zeros(L, B, F) if prev is None else prev
+        ts = ts.float()
+        ts_eff = ts - ts[:, :1] if prev is None else ts
+
+        layers = self.ode_func.layers()
+        use_kernels = cfg.resolved_use_kernels(fused.device)
+        cells = self._cells()
+        dt = torch.full((L * B,), opts.dt0, dtype=torch.float32, device=fused.device)
+        accepted = torch.zeros((), dtype=torch.int64, device=fused.device)
+        rejected = torch.zeros_like(accepted)
+        incomplete = torch.zeros(B, dtype=torch.int32, device=fused.device)
+        outs = []
+        for k in range(steps):
+            t0, t1 = ts_eff[:, k].repeat(L), ts_eff[:, k + 1].repeat(L)
+            y = h.reshape(L * B, F).contiguous()
+            if use_kernels:
+                y1, dt, acc, rej, inc = fused_ode_solve(
+                    layers, y, t0, t1, activation=cfg.ode_activation_fn,
+                    method=opts.method, rtol=opts.rtol, atol=opts.atol,
+                    dt0=dt, max_steps=opts.max_steps, safety=opts.safety,
+                    factor_min=opts.factor_min, factor_max=opts.factor_max)
+            else:
+                y1, dt, (acc, rej, inc) = solve_ivp_dt(
+                    self.ode_func, y, t0, t1, opts, dt)
+            accepted += acc.sum()
+            rejected += rej.sum()
+            incomplete += inc.reshape(L, B).sum(0, dtype=torch.int32)
+            out, h = step_stack(cfg.ode_rnn_type, cells, fused[:, k],
+                                y1.reshape(L, B, F))
+            outs.append(out)
+        pose = self.regressor(torch.stack(outs, dim=1))
+        return pose, h, SolveStats(accepted, rejected, incomplete)

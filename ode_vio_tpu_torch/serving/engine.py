@@ -1,0 +1,150 @@
+"""Multi-session streaming inference engine (counterpart of
+``ode_vio_tpu/serving/engine.py``).
+
+Sessions are lanes of one fixed-size batch of ``max_sessions``:
+
+* Each session's hidden state lives in its lane of the carry on the
+  device. For the ode-rnn core the carry is ``(L, B, F)``, the lane on
+  axis 1.
+* Idle lanes replay their previous window (or a zero prototype) and
+  their carry is restored afterwards, so an idle session never advances.
+* A fresh session gets a zeroed lane carry and its clock re-based to 0.
+* Truncated-solve counts accumulate only for lanes that served a real
+  window.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ode_vio_tpu_torch.config import resolve_device
+from ode_vio_tpu_torch.training.loop import make_infer_fn
+
+Window = Tuple[np.ndarray, np.ndarray, np.ndarray]  # (imgs, imus, ts)
+
+LANE_AXIS = 1  # carry (L, B, F)
+
+
+def _select_lanes(mask: torch.Tensor, new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+    """Lanes with mask=True take ``new``, the others ``old``."""
+    shape = [1] * new.dim()
+    shape[LANE_AXIS] = mask.shape[0]
+    return torch.where(mask.reshape(shape), new, old)
+
+
+class StreamingEngine:
+    """``step({sid: (imgs, imus, ts)}) -> {sid: poses}`` advances every
+    submitted session by one window (imgs ``(S, H, W, 3)`` float32, imus
+    ``(10*(S-1)+1, 6)``, ts ``(S,)`` strictly ascending on the session's
+    own clock); poses are ``(S-1, 6)`` numpy arrays. Sessions not in the
+    dict are untouched. All windows of one call ride one batched forward.
+    """
+
+    def __init__(self, model, state_dict=None, max_sessions: int = 8,
+                 fold_bn: bool = True, *, device="cuda"):
+        self.device = resolve_device(device)
+        self.N = int(max_sessions)
+        self._infer = make_infer_fn(model, state_dict, fold_bn=fold_bn,
+                                    device=self.device)
+        self._free = list(range(self.N - 1, -1, -1))
+        self._open: set = set()
+        self._fresh: set = set()
+        self._t_off = np.zeros(self.N, np.float64)
+        self._carry: Optional[torch.Tensor] = None
+        self._last: Dict[int, Window] = {}
+        self._proto: Optional[Window] = None
+
+    # -- session lifecycle -------------------------------------------------
+    def open_session(self) -> int:
+        if not self._free:
+            raise RuntimeError(f"all {self.N} lanes in use")
+        lane = self._free.pop()
+        self._open.add(lane)
+        self._fresh.add(lane)
+        if self._carry is not None:
+            with torch.inference_mode():  # the carry is the engine's own
+                self._carry[:, lane] = 0
+        return lane
+
+    def close_session(self, sid: int) -> None:
+        self._open.discard(sid)
+        self._fresh.discard(sid)
+        self._last.pop(sid, None)
+        self._free.append(sid)
+
+    # -- serving -----------------------------------------------------------
+    def _set_proto(self, imgs, imus, ts) -> None:
+        self._proto = (np.zeros_like(np.asarray(imgs, np.float32)),
+                       np.zeros_like(np.asarray(imus, np.float32)),
+                       np.arange(len(ts), dtype=np.float32) * 0.1)
+
+    def _put(self, arrays) -> torch.Tensor:
+        return torch.from_numpy(np.stack(arrays, 0)).to(self.device)
+
+    def step(self, windows: Dict[int, Window]) -> Dict[int, np.ndarray]:
+        if not windows:
+            return {}
+        for sid in windows:
+            if sid not in self._open:
+                raise KeyError(f"session {sid} is not open")
+        if self._proto is None:
+            self._set_proto(*next(iter(windows.values())))
+
+        stacked = []
+        for lane in range(self.N):
+            if lane in windows:
+                imgs, imus, ts = windows[lane]
+                ts = np.asarray(ts, np.float64)
+                if lane in self._fresh:
+                    # re-base this session's clock to 0 (cold-start semantics)
+                    self._t_off[lane] = ts[0]
+                    self._fresh.discard(lane)
+                w = (np.asarray(imgs, np.float32), np.asarray(imus, np.float32),
+                     (ts - self._t_off[lane]).astype(np.float32))
+                self._last[lane] = w
+            else:
+                # idle lane: replay (outputs discarded, carry restored)
+                w = self._last.get(lane, self._proto)
+            stacked.append(w)
+        imgs, imus, ts = (self._put([w[k] for w in stacked]) for k in range(3))
+
+        active = np.array([ln in windows for ln in range(self.N)])
+        mask = torch.from_numpy(active).to(self.device)
+        if self._carry is None:
+            poses, carry = self._infer(imgs, imus, ts, None, active=active)
+            # lanes that did not really start yet stay zeroed
+            self._carry = _select_lanes(mask, carry, torch.zeros_like(carry))
+        else:
+            poses, carry = self._infer(imgs, imus, ts, self._carry, active=active)
+            self._carry = _select_lanes(mask, carry, self._carry)
+        poses = poses.cpu().numpy()
+        return {sid: poses[sid] for sid in windows}
+
+    def warmup(self, proto: Window) -> None:
+        """Run the cold-start and the carried forward once on prototype
+        lanes shaped like ``proto`` (building the kernels and warming the
+        caches) without a trace: the carry stays unset and the counters
+        are reset afterwards."""
+        self._set_proto(*proto)
+        imgs, imus, ts = (self._put([a] * self.N) for a in self._proto)
+        inactive = np.zeros(self.N, bool)
+        _, carry = self._infer(imgs, imus, ts, None, active=inactive)
+        self._infer(imgs, imus, ts, carry, active=inactive)[0].cpu()
+        self._infer.reset_incomplete()
+
+    def hidden(self, sid: int) -> Optional[torch.Tensor]:
+        """A copy of session ``sid``'s carried hidden state (L, F), or None
+        before the first step."""
+        return None if self._carry is None else self._carry[:, sid].clone()
+
+    def incomplete(self) -> int:
+        """Running total of ODE solves truncated by the step budget,
+        counting only lanes that served a real window."""
+        return self._infer.incomplete()
+
+    def incomplete_by_lane(self):
+        """Per-lane truncated-solve totals (None before the first step)."""
+        return self._infer.incomplete_by_lane()
