@@ -4,7 +4,8 @@
 
 Phases, one line each, any failure ends the run with a non-zero exit:
   env     the card, its power limit; TF32 off for matmuls and convs
-  build   nvcc builds ode_vio_tpu_torch/csrc/fused_ode_solve.cu (sm_90a)
+  build   nvcc builds ode_vio_tpu_torch/csrc/fused_ode_solve.cu and
+          fused_cde_solve.cu (sm_90a), both nvcc runs started together
   kernel  K1 fused_ode_solve against its plain PyTorch version at the
           flagship field (softplus 768->1024->1024->768, dopri5, rtol 1e-2,
           atol 1e-6, max_steps 64): N = 3*4 rows, ragged N = 5, zero-length
@@ -17,6 +18,31 @@ Phases, one line each, any failure ends the run with a non-zero exit:
           per frame interval (10 per step)
   core    the same windows through use_kernels=False (the solver core);
           poses must agree
+  kernel_cde  K2 fused_cde_solve against its plain PyTorch version at the
+          flagship cde field (tanh 128->128->128->128->16512, dopri5):
+          linear and cubic paths, repeated leading knots, the history
+          path's own shapes (64 knots with 54 and 24 collapsed; the
+          11-knot advance, collapsed and full), evaluation times off the
+          knots (the rde field, C 45), a ragged row count, forced
+          rejections, a starved budget. Each case takes the first seeded
+          draw whose step counts rounding does not decide (the plain
+          version in float64 and with z0 moved by 2^-21 take the same
+          steps); per-row counts must be equal, the case's branch reached,
+          zs within 4x the rounding's reach. Then the main path's input
+          (its shape and solver settings, whose step counts rounding
+          decides, so zs are not compared there) is timed with CUDA events
+          next to the plain version
+  slice_cde    the flagship configuration with the cde pose core (seeded
+          init) behind StreamingEngine(max_sessions=4, fold_bn=True) on the
+          same schedule; K2 must launch once per step, K1 never
+  history_cde  the same in cde_streaming_mode="history": K2 launches once
+          on the engine's first step, twice (advance, re-integration) after
+  slice_rde    the rde pose core, carry mode: K2 once per step
+  core_cde     the schedule's windows with images and IMU x0.1, served
+          through K2 and through use_kernels=False (no K2 launch); poses
+          must agree within 4x how far rounding alone moves them there
+          (the pose core in float32 vs float64)
+  seconds  each phase's wall time
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero and prints
 no result.
@@ -37,12 +63,16 @@ import torch
 from ode_vio_tpu_torch.config import flagship_config
 from ode_vio_tpu_torch.models.deepvio import DeepVIO, create_model
 from ode_vio_tpu_torch.ops import cuda_kernels
-from ode_vio_tpu_torch.ops.mlp import init_mlp, ode_func_sizes
+from ode_vio_tpu_torch.ops.interpolation import make_path
+from ode_vio_tpu_torch.ops.mlp import cde_func_sizes, init_mlp, ode_func_sizes
 from ode_vio_tpu_torch.ops.solvers import get_tableau
 from ode_vio_tpu_torch.serving import StreamingEngine
 
 SEED = 0
 SESSIONS = 4
+# core_cde serves the windows with images and IMU samples times this
+# factor, where rounding alone does not move the cde poses by their size
+CDE_CORE_SCALE = 0.1
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s off the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
@@ -88,10 +118,20 @@ def build() -> None:
     t = time.perf_counter()
     cuda_kernels.build()
     secs = time.perf_counter() - t
-    ptxas = [ln.strip() for ln in cuda_kernels.build_output.splitlines()
-             if "registers" in ln or "spill" in ln]
-    phase("build", seconds=round(secs, 3), source=str(cuda_kernels.SOURCE.name),
-          ptxas=ptxas)
+    ptxas = {name: [ln.strip() for ln in out.splitlines() if "registers" in ln or "spill" in ln]
+             for name, out in cuda_kernels.build_output.items()}
+    phase("build", seconds=round(secs, 3),
+          sources=[src.name for src in cuda_kernels.SOURCES.values()], ptxas=ptxas)
+
+
+def bound(evals: int, n_params: int, nbytes: int) -> dict:
+    """The least time for the work: ``evals`` field evaluations at 2 flops
+    per weight at the f32 CUDA-core peak, or the bytes at the HBM rate."""
+    flops = evals * 2 * n_params
+    b = {"bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "flops_ms": flops / F32_FLOPS * 1e3}
+    return {"evals": evals, "flops": flops, "bytes": nbytes, **b,
+            "bound_ms": max(b.values()),
+            "bound_by": "operations" if b["flops_ms"] >= b["bytes_ms"] else "bytes"}
 
 
 def field_problem(n: int, zero_rows, gen: torch.Generator, dev, gain: float = 1.0):
@@ -183,15 +223,223 @@ def kernel_check(dev) -> dict:
     steps = (out[2] + out[3]).cpu()
     evals = int((1 + (tab.num_stages - 1) * steps).sum()) if tab.fsal \
         else int((tab.num_stages * steps).sum())
-    flops = evals * 2 * n_params
     nbytes = 4 * (sum(w.numel() + b.numel() for w, b in layers) + y0.numel() * 2 + n * 3 + n * 4)
-    bound = {"bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "flops_ms": flops / F32_FLOPS * 1e3}
-    bound_by = "operations" if bound["flops_ms"] >= bound["bytes_ms"] else "bytes"
+    bd = bound(evals, n_params, nbytes)
     phase("kernel", name="fused_ode_solve", cases=cases, max_abs_err=max_err,
-          max_dt_final_rel_err_incomplete_rows=max_dt_rel, ms=ms, plain_ms=plain_ms, evals=evals,
-          flops=flops, bytes=nbytes, **bound)
+          max_dt_final_rel_err_incomplete_rows=max_dt_rel, ms=ms, plain_ms=plain_ms, **bd)
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(bound.values()), "bound_by": bound_by}
+            "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"]}
+
+
+def cde_config():
+    """The flagship configuration with the cde pose core, as the JAX
+    package measured its cde row: cde_hidden_dim 128, 3 hidden field
+    layers, tanh, linear path, the CDE solver dopri5 rtol 1e-4, atol 1e-6,
+    dt0 1e-4, max_steps 256 (``Config.cde_solver_cfg``)."""
+    cfg = flagship_config()
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, model_type="cde"))
+
+
+def cde_problem(n: int, T: int, channels: int, gen: torch.Generator, dev, *,
+                kind: str = "linear", repeat: int = 0, eval_frames: int = 0,
+                features=("random", 1.0, 0.0)):
+    """The flagship cde field for ``channels`` path channels (129 for cde,
+    45 for rde) and one control path per row: T knots at frame intervals,
+    a time channel and ``channels - 1`` feature channels. ``features``:
+    ``("random", amp, _)`` draws every knot's features from N(0, amp^2)
+    (the served path's kind: a new slope at every knot); ``("drift", amp,
+    jitter)`` is a straight line with N(0, amp^2) slopes plus N(0,
+    jitter^2) noise at the knots. ``repeat`` collapses the first knots onto
+    the next one (a history buffer's unfilled prefix); ``eval_frames`` > 0
+    evaluates at that many frame times over a 2-knot path (the rde shape).
+    Returns the layers and the kernel's arguments after ``layers``."""
+    m = cde_config().model
+    H = m.cde_hidden_dim
+    layers = [(w.to(dev), (b + 0.01 * torch.randn(b.shape, generator=gen)).to(dev))
+              for w, b in init_mlp(cde_func_sizes(channels, H, m.cde_fn_num_layers), gen)]
+    z0 = torch.tanh(torch.randn(n, H, generator=gen))
+    frames = torch.cumsum(0.08 + 0.05 * torch.rand(n, max(T, eval_frames), generator=gen), 1)
+    knots = frames[:, [0, -1]] if eval_frames else frames[:, :T].clone()
+    kind_f, amp, jitter = features
+    if kind_f == "random":
+        f = amp * torch.randn(n, knots.shape[1], channels - 1, generator=gen)
+    else:
+        f = amp * torch.randn(n, 1, channels - 1, generator=gen) * knots[..., None] \
+            + jitter * torch.randn(n, knots.shape[1], channels - 1, generator=gen)
+    xs = torch.cat([knots[..., None], f], -1)
+    if repeat:
+        knots[:, :repeat] = knots[:, repeat:repeat + 1]
+        xs[:, :repeat] = xs[:, repeat:repeat + 1]
+    path = make_path(knots, xs, kind)
+    cubic = kind == "cubic"
+    args = [z0, path.ts, path.b, path.c if cubic else None, path.d if cubic else None,
+            frames if eval_frames else knots]
+    return layers, [None if a is None else a.contiguous().to(dev) for a in args]
+
+
+# (name, rows, knots T, channels C, kind, repeated knots, eval frames,
+#  features, dt0, solver overrides, branches the case must reach). T = E =
+# 10 is a window of the carry mode (its first segment has zero length); 20
+# knots with 8 collapsed stand for a history buffer's prefix. The history
+# path of slice phases re-integrates its 64-slot buffer with 54, 44, 34 and
+# 24 slots collapsed, and advances z0 over 11 slots, all collapsed until
+# the buffer is full and none after: the history_* cases take those shapes
+# (the first and last re-integration, both advances). The rde shape has a
+# 2-knot compressed path evaluated at 10 frame times. At the
+# main path's settings (rtol 1e-4, dt0 1e-4, a new slope at every knot)
+# the step counts are decided by rounding (see not_decided_by_rounding), so
+# these cases use paths and tolerances where they are not: rtol 1e-2 for
+# random knots, 1e-3 for drifting paths (history_c24's 40 live segments
+# with less jitter: at 0.003 rounding decided six draws of six, at 0.001
+# five). Rejections come
+# from the knots' slope changes (a landing stage reads the next segment's
+# slope) and from a first step of 0.5; the budget case runs every segment
+# out of its one step, the step growing x2 per segment.
+CDE_CASES = (
+    ("main", 4, 10, 129, "linear", 0, 0, ("random", 0.03, 0.0), None, {"rtol": 1e-2},
+     ("rejected",)),
+    ("cubic", 4, 10, 129, "cubic", 0, 0, ("drift", 0.1, 0.003), None, {"rtol": 1e-3}, ()),
+    ("history_prefix", 4, 20, 129, "linear", 8, 0, ("drift", 0.1, 0.003), None,
+     {"rtol": 1e-3}, ("zero_length", "rejected")),
+    ("rde_off_knots", 4, 2, 45, "linear", 0, 10, ("drift", 0.1, 0.003), None,
+     {"rtol": 1e-3}, ()),
+    ("n5_ragged", 5, 10, 129, "linear", 0, 0, ("random", 0.03, 0.0), None, {"rtol": 1e-2},
+     ()),
+    ("rejects", 4, 10, 129, "linear", 0, 0, ("drift", 0.3, 0.003), 0.5, {"rtol": 1e-3},
+     ("rejected",)),
+    ("budget", 4, 10, 129, "linear", 0, 0, ("drift", 0.1, 0.003), None,
+     {"rtol": 1e-3, "max_steps": 1, "factor_max": 2.0}, ("incomplete",)),
+    ("history_c54", 4, 64, 129, "linear", 54, 0, ("drift", 0.1, 0.003), None,
+     {"rtol": 1e-3}, ("zero_length", "rejected")),
+    ("history_c24", 4, 64, 129, "linear", 24, 0, ("drift", 0.1, 0.0005), None,
+     {"rtol": 1e-3}, ("zero_length", "rejected")),
+    ("advance_collapsed", 4, 11, 129, "linear", 10, 0, ("drift", 0.1, 0.003), None,
+     {"rtol": 1e-3}, ("zero_length",)),
+    ("advance_full", 4, 11, 129, "linear", 0, 0, ("drift", 0.1, 0.003), None,
+     {"rtol": 1e-3}, ("rejected",)),
+)
+# the main path's shape and settings (cde solver, a new N(0, 1) slope at
+# every knot, ~190 accepted steps per row as in a served window): timed
+MAIN_PATH_INPUT = (4, 10, 129, "linear", 0, 0, ("random", 1.0, 0.0))
+MAX_DRAWS = 6  # draws per case until one is not decided by rounding
+
+
+def not_decided_by_rounding(layers, args, kw, ref):
+    """Whether the plain version takes the same per-row steps in float64
+    and with z0 moved by 2^-21 as ``ref`` (its float32 run) does; and the
+    larger of the two runs' distances to ``ref``'s zs. Where it does not,
+    the controller's proposals after steps whose error ratio sits at the
+    rounding's level (the ramp-up from dt0, landings on a knot) decide the
+    step sequence, and two correct float32 implementations part at the
+    solver's tolerance."""
+    f64 = [(w.double(), b.double()) for w, b in layers]
+    runs = (cuda_kernels.fused_cde_solve_plain(
+                f64, *[None if a is None else a.double() for a in args], **kw),
+            cuda_kernels.fused_cde_solve_plain(
+                layers, args[0] * (1 + 2.0 ** -21), *args[1:], **kw))
+    same = all(torch.equal(r[k], ref[k]) for r in runs for k in (2, 3, 4))
+    return same, max(float((r[0] - ref[0]).abs().max()) for r in runs)
+
+
+def cde_solver_kw() -> dict:
+    s = cde_config().cde_solver_cfg
+    return dict(activation=cde_config().model.cde_activation_fn, method=s.method,
+                rtol=s.rtol, atol=s.atol, dt0=s.dt0, max_steps=s.max_steps, safety=s.safety,
+                factor_min=s.factor_min, factor_max=s.factor_max)
+
+
+def check_cde_case(case, dev, seed: int) -> dict:
+    """One of CDE_CASES: the first of MAX_DRAWS draws (from ``seed``) whose
+    counts are not decided by rounding, through K2 and its plain version.
+    Counts equal per row, the case's branches reached, zs within 4x the
+    rounding's reach (at least 1e-5), dt_final equal where every segment
+    ran out of budget. Returns the counts and errors."""
+    name, n, T, C, kind, repeat, frames, feat, dt0, over, must_reach = case
+    kw = dict(cde_solver_kw(), **over, **({} if dt0 is None else {"dt0": dt0}))
+    gen = torch.Generator().manual_seed(seed)
+    for draw in range(MAX_DRAWS):
+        layers, args = cde_problem(n, T, C, gen, dev, kind=kind, repeat=repeat,
+                                   eval_frames=frames, features=feat)
+        ref = cuda_kernels.fused_cde_solve_plain(layers, *args, **kw)
+        well, gap = not_decided_by_rounding(layers, args, kw, ref)
+        if well:
+            break
+    else:
+        raise AssertionError(f"{name}: every draw's step counts are decided by rounding")
+    out = cuda_kernels.fused_cde_solve(layers, *args, **kw)
+    torch.cuda.synchronize()
+    counts = {}
+    for k, what in ((2, "accepted"), (3, "rejected"), (4, "incomplete")):
+        if not torch.equal(out[k], ref[k]):
+            raise AssertionError(f"{name}: per-row {what} differ: "
+                                 f"{out[k].tolist()} vs {ref[k].tolist()}")
+        counts[what] = out[k].tolist()
+    z0, ts, ev = args[0], args[1], args[5]
+    counts["zero_length"] = int((ev[:, 1:] == ev[:, :-1]).sum() + (ev[:, 0] == ts[:, 0]).sum())
+    for what in must_reach:
+        total = counts[what] if isinstance(counts[what], int) else sum(counts[what])
+        if total == 0:
+            raise AssertionError(f"{name}: no row reached the {what} branch")
+    if repeat and not torch.equal(out[0][:, :repeat], z0[:, None].expand(-1, repeat, -1)):
+        raise AssertionError(f"{name}: z moved over the collapsed knots")
+    if not torch.isfinite(out[0]).all():
+        raise AssertionError(f"{name}: non-finite zs")
+    # zs: equal steps, but the step sizes carry the rounding that the two
+    # reference runs show; 4x their distance, at least 1e-5
+    err, atol = float((out[0] - ref[0]).abs().max()), max(1e-5, 4 * gap)
+    if err > atol:
+        raise AssertionError(f"{name}: zs differ by {err} (> {atol})")
+    # dt_final: where a row's last segment ran out of budget it is a full
+    # step's proposal (in the budget case every segment does: exact powers
+    # of 2 times dt0); after a landing on a knot it is rounding noise
+    if "max_steps" in over and not torch.equal(out[1], ref[1]):
+        raise AssertionError(f"{name}: dt_final differs: {out[1].tolist()} vs {ref[1].tolist()}")
+    return dict(counts, draw=draw, max_abs_err=err, zs_atol=atol)
+
+
+def kernel_cde_check(dev) -> dict:
+    cases = {case[0]: check_cde_case(case, dev, SEED + i) for i, case in enumerate(CDE_CASES)}
+    max_err = max(c["max_abs_err"] for c in cases.values())
+    base = cde_solver_kw()
+    gen = torch.Generator().manual_seed(SEED)
+    # the main path's input, timed. Rounding decides its step counts (the
+    # two versions' are printed), and z on it then differs by about its own
+    # size, so zs are not compared here: the cases above hold K2 at this
+    # shape (main, n5_ragged, rejects, budget) and at the history path's.
+    layers, args = cde_problem(*MAIN_PATH_INPUT[:3], gen, dev, kind=MAIN_PATH_INPUT[3],
+                               features=MAIN_PATH_INPUT[6])
+    out = cuda_kernels.fused_cde_solve(layers, *args, **base)
+    ref = cuda_kernels.fused_cde_solve_plain(layers, *args, **base)
+    if not torch.isfinite(out[0]).all():
+        raise AssertionError("main path input: non-finite zs")
+    ms = cuda_ms(lambda: cuda_kernels.fused_cde_solve(layers, *args, **base), runs=10, warmup=1)
+    plain_ms = cuda_ms(lambda: cuda_kernels.fused_cde_solve_plain(layers, *args, **base),
+                       runs=5, warmup=1)
+    bd = cde_bound(layers, args, out)
+    main_path = dict(accepted=out[2].tolist(), accepted_plain=ref[2].tolist(),
+                     rejected=out[3].tolist(), rejected_plain=ref[3].tolist(),
+                     zs_finite=True)
+    phase("kernel_cde", name="fused_cde_solve", cases=cases, max_abs_err=max_err,
+          main_path_input=main_path, ms=ms, plain_ms=plain_ms, **bd)
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"]}
+
+
+def cde_bound(layers, args, out) -> dict:
+    """K2's bound on this data: the field evaluations the counts need (FSAL
+    dopri5: 1 per segment that takes a step, 6 per step); the bytes of
+    the weights, the path and z in, zs and the counts out."""
+    tab = get_tableau(cde_config().cde_solver_cfg.method)
+    z0, ts, _, _, _, ev = args
+    t_start = torch.cat([ts[:, :1], ev[:, :-1]], 1)
+    busy = int(((ev - t_start) > 0).sum())
+    steps = int((out[2] + out[3]).sum())
+    evals = busy + (tab.num_stages - 1) * steps
+    n_params = sum(w.numel() for w, _ in layers)
+    nbytes = 4 * (sum(w.numel() + b.numel() for w, b in layers)
+                  + sum(a.numel() for a in args if a is not None)
+                  + out[0].numel() + 4 * z0.shape[0])
+    return bound(evals, n_params, nbytes)
 
 
 def make_windows(cfg, gen: np.random.Generator, n_windows: int):
@@ -215,7 +463,16 @@ SCHEDULE = [([0, 1], [0, 1]), ([2], [0, 1, 2]), ([3], [0, 2, 3]), ([], [0, 1, 2,
 IDLE = (2, 1)  # in window 2, session 1 idles
 
 
-def serve(engine: StreamingEngine, wins, count_launches: bool):
+def same_carry(a, b) -> bool:
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+    return torch.equal(a, b)
+
+
+def serve(engine: StreamingEngine, wins, expected=None):
+    """Serves SCHEDULE. Returns the poses, the step times and the (K1, K2)
+    launches of each step, which must equal ``expected`` where given."""
+    k1, k2 = cuda_kernels.fused_ode_solve, cuda_kernels.fused_cde_solve
     sids, nxt, poses, lat, launches = {}, {s: 0 for s in wins}, [], [], []
     for w, (opens, served) in enumerate(SCHEDULE):
         for s in opens:
@@ -224,25 +481,25 @@ def serve(engine: StreamingEngine, wins, count_launches: bool):
         batch = {sids[s]: wins[s][nxt[s]] for s in served}
         for s in served:
             nxt[s] += 1
-        n0 = cuda_kernels.fused_ode_solve.launches
+        n0 = (k1.launches, k2.launches)
         t = time.perf_counter()
         out = engine.step(batch)
         lat.append(time.perf_counter() - t)
-        launches.append(cuda_kernels.fused_ode_solve.launches - n0)
+        launches.append((k1.launches - n0[0], k2.launches - n0[1]))
         for s in served:
             p = out[sids[s]]
             if p.shape != (10, 6) or not np.isfinite(p).all():
                 raise AssertionError(f"window {w} session {s}: poses {p.shape} "
                                      f"finite={np.isfinite(p).all()}")
         poses.append({s: out[sids[s]] for s in served})
-        if before_idle is not None and not torch.equal(before_idle, engine.hidden(sids[IDLE[1]])):
+        if before_idle is not None and not same_carry(before_idle, engine.hidden(sids[IDLE[1]])):
             raise AssertionError("the idle session's carry changed")
-    if count_launches and launches != [10] * len(SCHEDULE):
-        raise AssertionError(f"K1 launches per step {launches}, expected 10 each")
+    if expected is not None and launches != expected:
+        raise AssertionError(f"(K1, K2) launches per step {launches}, expected {expected}")
     return poses, lat, launches
 
 
-def profile_step(engine: StreamingEngine, wins) -> None:
+def profile_step(engine: StreamingEngine, wins, name: str = "profile") -> None:
     """Device time by kernel over one served step (all four sessions, their
     first windows again), from torch.profiler; the idle share is the part
     of the step's wall time with no kernel running (one stream, so kernel
@@ -261,64 +518,163 @@ def profile_step(engine: StreamingEngine, wins) -> None:
             kernels[ev.key] = kernels.get(ev.key, 0.0) + dev_us / 1e3
     busy = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
-    phase("profile", wall_ms=wall_ms, device_busy_ms=busy,
+    phase(name, wall_ms=wall_ms, device_busy_ms=busy,
           idle_share=1.0 - busy / wall_ms if wall_ms else None,
           top_kernels_ms={k[:80]: v for k, v in top})
 
 
-def slice_phases(dev) -> int:
-    cfg = flagship_config()
+def run_slice(name: str, cfg, dev, expected, state_dict=None, model=None, wins=None):
+    """``cfg``'s model (seeded init, or ``state_dict`` on it) behind
+    StreamingEngine(max_sessions=4, fold_bn=True), serving SCHEDULE on
+    ``wins`` (default: random windows from SEED) with the launch counts set
+    to 0 just before and read just after. Returns the model, the engine, the
+    windows, the poses and the (K1, K2) launches."""
     t = time.perf_counter()
-    model = create_model(cfg, seed=SEED, device=dev)
+    if model is None:
+        model = create_model(cfg, seed=SEED, device=dev)
     init_s = time.perf_counter() - t
-    wins = make_windows(cfg, np.random.default_rng(SEED), len(SCHEDULE))
-    proto = wins[0][0]
-
-    engine = StreamingEngine(model, max_sessions=SESSIONS, fold_bn=True, device=dev)
-    engine.warmup(proto)
-    cuda_kernels.reset_launch_counts()          # the main path's run starts here
-    poses, lat, per_step = serve(engine, wins, count_launches=True)
-    launches = cuda_kernels.fused_ode_solve.launches
-    phase("slice", init_s=init_s, windows=len(SCHEDULE), steps_launches=per_step,
+    if wins is None:
+        wins = make_windows(cfg, np.random.default_rng(SEED), len(SCHEDULE))
+    engine = StreamingEngine(model, state_dict, max_sessions=SESSIONS, fold_bn=True, device=dev)
+    engine.warmup(wins[0][0])
+    cuda_kernels.reset_launch_counts()          # this path's run starts here
+    poses, lat, per_step = serve(engine, wins, expected)
+    launches = (cuda_kernels.fused_ode_solve.launches, cuda_kernels.fused_cde_solve.launches)
+    phase(name, init_s=init_s, windows=len(SCHEDULE), steps_launches=per_step,
           launches=launches, incomplete=engine.incomplete(),
           incomplete_by_lane=engine.incomplete_by_lane().tolist(),
           step_ms=[x * 1e3 for x in lat], p50_step_ms=statistics.median(lat) * 1e3)
+    return model, engine, wins, poses, launches
 
-    profile_step(engine, wins)
 
+def meta_model(cfg, **model_fields):
+    """``cfg``'s DeepVIO with ``model_fields`` replaced, without weights
+    (the engine loads a state_dict into its own copy)."""
     with torch.device("meta"):
-        core_model = DeepVIO(dataclasses.replace(cfg.model, use_kernels=False), cfg.solver)
-    core = StreamingEngine(core_model, model.state_dict(), max_sessions=SESSIONS,
-                           fold_bn=True, device=dev)
-    core.warmup(proto)
-    n0 = cuda_kernels.fused_ode_solve.launches
-    core_poses, core_lat, _ = serve(core, wins, count_launches=False)
-    if cuda_kernels.fused_ode_solve.launches != n0:
-        raise AssertionError("use_kernels=False launched K1")
+        return DeepVIO(dataclasses.replace(cfg.model, **model_fields), cfg.solver,
+                       cfg.cde_solver_cfg)
+
+
+def max_pose_diff(a, b) -> float:
+    return max(float(np.abs(a[w][s] - b[w][s]).max()) for w in range(len(a)) for s in a[w])
+
+
+def slice_phases(dev) -> int:
+    cfg = flagship_config()
+    model, engine, wins, poses, (launches, _) = run_slice(
+        "slice", cfg, dev, [(10, 0)] * len(SCHEDULE))
+    profile_step(engine, wins)
+    _, core, _, core_poses, _ = run_slice("core_run", cfg, dev, [(0, 0)] * len(SCHEDULE),
+                                          model.state_dict(), meta_model(cfg, use_kernels=False))
     # the bf16 encoders are the same on both paths; only the ODE solve
     # differs (kernel vs cuBLAS sums in f32), and its error control at
     # rtol 1e-2 lets the two land within 1e-3 of each other
-    diff = max(float(np.abs(poses[w][s] - core_poses[w][s]).max())
-               for w in range(len(SCHEDULE)) for s in poses[w])
+    diff = max_pose_diff(poses, core_poses)
     if diff > 1e-3:
         raise AssertionError(f"kernel vs solver-core poses differ by {diff}")
-    phase("core", max_abs_pose_diff=diff, incomplete=core.incomplete(),
-          step_ms=[x * 1e3 for x in core_lat],
-          p50_step_ms=statistics.median(core_lat) * 1e3)
+    phase("core", max_abs_pose_diff=diff, incomplete=core.incomplete())
     return launches
 
 
+def scaled(wins, factor: float):
+    """The windows with images and IMU samples times ``factor``."""
+    return {sess: [(factor * imgs, factor * imus, ts) for imgs, imus, ts in ws]
+            for sess, ws in wins.items()}
+
+
+def pose_core_gap(model, cfg, wins, dev) -> float:
+    """How far rounding alone moves the cde poses on ``wins``: the pose core
+    on the solver core in float32 and in float64, on the same features (the
+    model's encoders), every session served every window with its state
+    carried and its clock re-based as the engine does. The largest pose
+    difference."""
+    cores = []
+    for dtype in (torch.float32, torch.float64):
+        core = type(model.Pose_net)(dataclasses.replace(cfg.model, use_kernels=False),
+                                    cfg.cde_solver_cfg)
+        core.load_state_dict(model.Pose_net.state_dict())
+        cores.append(core.to(dev, dtype).eval())
+    carries, gap = [None, None], 0.0
+    t_off = np.array([wins[sess][0][2][0] for sess in range(SESSIONS)])[:, None]
+    with torch.inference_mode():
+        for w in range(len(SCHEDULE)):
+            imgs, imus, ts = (np.stack([wins[sess][w][k] for sess in range(SESSIONS)])
+                              for k in range(3))
+            fv = model.Image_net(torch.from_numpy(imgs).to(dev))
+            fi = model.Inertial_net(torch.from_numpy(imus).to(dev))
+            ts = torch.from_numpy((ts - t_off).astype(np.float32)).to(dev)
+            poses = []
+            for i, core in enumerate(cores):
+                dtype = core.regressor[0].weight.dtype
+                p, carries[i], _ = core(fv.to(dtype), fi.to(dtype), ts, carries[i])
+                poses.append(p.double())
+            gap = max(gap, float((poses[0] - poses[1]).abs().max()))
+    return gap
+
+
+def cde_phases(dev) -> dict:
+    """The cde and rde pose cores behind the engine; returns K2's launches
+    on each of the three served paths that run it."""
+    cfg = cde_config()
+    steps = len(SCHEDULE)
+    model, engine, wins, _, (_, n_cde) = run_slice("slice_cde", cfg, dev, [(0, 1)] * steps)
+    profile_step(engine, wins, "profile_cde")
+    sd = model.state_dict()
+    _, _, _, _, (_, n_hist) = run_slice("history_cde", cfg, dev,
+                                        [(0, 1)] + [(0, 2)] * (steps - 1), sd,
+                                        meta_model(cfg, cde_streaming_mode="history"))
+    rde = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, model_type="rde"))
+    _, _, _, _, (_, n_rde) = run_slice("slice_rde", rde, dev, [(0, 1)] * steps)
+    # K2 against the solver core, served. On the windows above the seeded
+    # field's flow expands so far that rounding alone moves the poses by
+    # about their own size (PERF.md): no tolerance can hold the two paths
+    # together there. With the images and IMU samples x0.1 the path's
+    # slopes are ~100x smaller; the two paths must agree within 4x how far
+    # rounding alone moves the poses there (at least 1e-5).
+    small = scaled(wins, CDE_CORE_SCALE)
+    _, _, _, k2_poses, _ = run_slice("core_cde_k2", cfg, dev, [(0, 1)] * steps, sd,
+                                     meta_model(cfg), small)
+    _, core, _, core_poses, _ = run_slice("core_cde_run", cfg, dev, [(0, 0)] * steps, sd,
+                                          meta_model(cfg, use_kernels=False), small)
+    diff = max_pose_diff(k2_poses, core_poses)
+    gap = pose_core_gap(model, cfg, small, dev)
+    atol = max(1e-5, 4 * gap)
+    size = np.abs(np.concatenate([p for w in k2_poses for p in w.values()]))
+    phase("core_cde", max_abs_pose_diff=diff, pose_atol=atol, rounding_gap=gap,
+          window_scale=CDE_CORE_SCALE, pose_abs_median=float(np.median(size)),
+          pose_abs_max=float(size.max()), incomplete=core.incomplete())
+    if diff > atol:
+        raise AssertionError(f"K2 vs solver-core cde poses differ by {diff} (> {atol})")
+    return {"cde": n_cde, "cde_history": n_hist, "rde": n_rde}
+
+
 def main() -> None:
-    name = env()
+    seconds = {}
+
+    def timed(what, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[what] = round(time.perf_counter() - t, 3)
+        return out
+
+    name = timed("env", env)
     dev = torch.device("cuda", 0)
-    build()
-    k1 = kernel_check(dev)
-    launches = slice_phases(dev)
-    print(json.dumps({"kernels": [{
-        "name": "fused_ode_solve", "route": "cuda",
-        "source": "ode_vio_tpu_torch/csrc/fused_ode_solve.cu",
-        "replaces": "ode_vio_tpu/ops/pallas_kernels.py:42",
-        "launches": launches, "library_ms": None, **k1}]}), flush=True)
+    timed("build", build)
+    k1 = timed("kernel", kernel_check, dev)
+    k2 = timed("kernel_cde", kernel_cde_check, dev)
+    k1_launches = timed("slice_core", slice_phases, dev)
+    k2_by_path = timed("cde_rde", cde_phases, dev)
+    phase("seconds", **seconds)
+    print(json.dumps({"kernels": [
+        {"name": "fused_ode_solve", "route": "cuda",
+         "source": "ode_vio_tpu_torch/csrc/fused_ode_solve.cu",
+         "replaces": "ode_vio_tpu/ops/pallas_kernels.py:42",
+         "launches": k1_launches, "library_ms": None, **k1},
+        {"name": "fused_cde_solve", "route": "cuda",
+         "source": "ode_vio_tpu_torch/csrc/fused_cde_solve.cu",
+         "replaces": "ode_vio_tpu/ops/pallas_kernels.py:213",
+         "launches": sum(k2_by_path.values()), "launches_by_path": k2_by_path,
+         "library_ms": None, **k2}]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}),
           flush=True)

@@ -3,15 +3,18 @@
 The port's copy of the solver and model dataclasses of the JAX package
 (``ode_vio_tpu/config.py``): same field names, same defaults, so a
 configuration reads the same in both packages. Only the fields that a
-ported module reads are here; the others (CDE/RDE cores, training,
-the s2d and int8 encoder rewrites) come with the modules that read them.
+ported module reads are here; the others (training, the adjoint, the
+rnn/cfc/ltc cores, the s2d and int8 encoder rewrites) come with the
+modules that read them.
 
 One knob changes meaning: the JAX package's ``use_pallas`` tri-state
 becomes :attr:`ModelConfig.use_kernels`, the switch for the port's
 hand-written CUDA kernels. Its auto setting differs on purpose: the JAX
 package leaves its fused ODE kernel off for ode-rnn by default, the port
 turns its kernel on for every CUDA tensor, because that kernel is what
-the port's inference path is built around.
+the port's inference path is built around. For cde and rde, the families
+where the JAX package turns its fused CDE kernel on by default, the two
+agree.
 """
 
 from __future__ import annotations
@@ -42,7 +45,7 @@ class SolverConfig:
 class ModelConfig:
     """Model family and architecture hyperparameters."""
 
-    model_type: str = "ode-rnn"  # ode-rnn (rnn | cde | rde | ltc | cfc: not ported)
+    model_type: str = "ode-rnn"  # ode-rnn | cde | rde (rnn | ltc | cfc: not ported)
     img_w: int = 512
     img_h: int = 256
     v_f_len: int = 512           # visual feature length
@@ -56,6 +59,25 @@ class ModelConfig:
     ode_activation_fn: str = "tanh"  # tanh | relu | leaky_relu | softplus
     ode_rnn_type: str = "rnn"    # rnn | gru
     rnn_num_layers: int = 2
+
+    # CDE core: field z -> hidden x cde_fn_num_layers -> hidden*(hidden+1)
+    cde_hidden_dim: int = 128
+    cde_fn_num_layers: int = 3
+    cde_activation_fn: str = "tanh"
+    cde_interpolation: str = "linear"   # linear | cubic (cubic-Hermite control path)
+    # streaming eval: 'carry' continues from the last evaluated z;
+    # 'history' re-integrates a ring buffer of the last `cde_history_cap`
+    # observations from the first window's z0 (advanced over evicted
+    # slots); 'reset' starts every window fresh
+    cde_streaming_mode: str = "carry"
+    cde_history_cap: int = 64
+
+    # RDE core: depth-2 log-signature windows of a reduced path
+    logsig_depth: int = 2
+    logsig_window: int = 20
+    rde_streaming_mode: str = "carry"  # carry | history | reset, as for cde
+    rde_history_cap: int = 32          # in compressed-path knots
+    rde_reduced_dim: int = 8
 
     # encoders run in `compute_dtype`, the solver state in float32
     compute_dtype: str = "bfloat16"
@@ -82,6 +104,10 @@ class ModelConfig:
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     solver: SolverConfig = field(default_factory=SolverConfig)
+    # the cde/rde solver: the reference's rtol 1e-4 with a wider eval
+    # step budget than the ode-rnn's
+    cde_solver_cfg: SolverConfig = field(
+        default_factory=lambda: SolverConfig(rtol=1e-4, atol=1e-6, max_steps=256))
 
 
 def resolve_device(device) -> torch.device:

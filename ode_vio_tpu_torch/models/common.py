@@ -4,10 +4,57 @@ stacked RNN/GRU at torch's default uniform)."""
 
 from __future__ import annotations
 
+from typing import Dict, NamedTuple, Union
+
 import torch
 from torch import nn
 
+from ode_vio_tpu_torch.ops.mlp import apply_mlp, get_activation
 from ode_vio_tpu_torch.ops.rnn_cells import init_cell
+
+# A pose core's carry: one tensor, or a dict of tensors (cde/rde history mode)
+Carry = Union[torch.Tensor, Dict[str, torch.Tensor]]
+
+
+class SolveStats(NamedTuple):
+    """Step counts of one forward: totals of accepted and rejected steps,
+    and per lane (B,) the solves (ODE-RNN: per layer and interval; CDE:
+    per segment) that ran out of ``max_steps`` before their end."""
+
+    accepted: torch.Tensor
+    rejected: torch.Tensor
+    incomplete: torch.Tensor
+
+
+class Activation(nn.Module):
+    def __init__(self, name: str):
+        super().__init__()
+        self.name = name
+        self.fn = get_activation(name)
+
+    def forward(self, x):
+        return self.fn(x)
+
+
+class MLPField(nn.Module):
+    """A tanh-bounded MLP vector field (the ODE-RNN's f(t, h) = MLP(h), the
+    CDE cores' g(z) before its reshape); linear layers at the reference
+    indices ``net.0``, ``net.2``, ..."""
+
+    def __init__(self, sizes, activation: str):
+        super().__init__()
+        self.activation = activation
+        mods = []
+        for i in range(len(sizes) - 1):
+            mods.append(nn.Linear(sizes[i], sizes[i + 1]))
+            mods.append(Activation(activation) if i < len(sizes) - 2 else nn.Tanh())
+        self.net = nn.Sequential(*mods)
+
+    def layers(self):
+        return [(m.weight, m.bias) for m in self.net if isinstance(m, nn.Linear)]
+
+    def forward(self, t, y):
+        return apply_mlp(self.layers(), y, self.activation)
 
 
 class PoseRegressor(nn.Sequential):

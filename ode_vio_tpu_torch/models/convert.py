@@ -11,6 +11,9 @@ accepts. Layout rules (those of ``ode_vio_tpu/models/convert.py``):
   reference's CHW order; ``proj`` rows come L-major (11, 256) and go
   C-major (256, 11).
 * The MLP and RNN-cell params are already in the torch (out, in) layout.
+* The cde/rde cores: ``cde_func`` -> ``cde_func.net.{2i}``, ``initial`` ->
+  ``initial.0``, ``reduction0``/``reduction1`` -> ``reduction_net.0``/``.2``
+  (cde), ``reduction`` -> ``reduction_net`` (rde).
 * BatchNorm scale/bias/mean/var map to weight/bias/running_mean/
   running_var, plus a zero ``num_batches_tracked``. A BN-folded tree (no
   bn entries, conv biases present) converts too.
@@ -45,6 +48,12 @@ def _dense(sd: dict, key: str, dense: Mapping) -> None:
     sd[f"{key}.bias"] = dense["bias"]
 
 
+def _mlp(sd: dict, key: str, layers) -> None:
+    for i, layer in enumerate(layers):
+        sd[f"{key}.{2 * i}.weight"] = layer["w"]
+        sd[f"{key}.{2 * i}.bias"] = layer["b"]
+
+
 def from_jax_variables(variables: Mapping[str, Any], cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     params = variables["params"]
     stats = variables.get("batch_stats", {})
@@ -77,13 +86,20 @@ def from_jax_variables(variables: Mapping[str, Any], cfg: ModelConfig) -> Dict[s
     pose = params["pose_net"]
     if "fuse" in pose:
         _dense(sd, "Pose_net.fuse.net.0", pose["fuse"]["gate"])
-    for i, layer in enumerate(pose["ode_func"]):
-        sd[f"Pose_net.ode_func.net.{2 * i}.weight"] = layer["w"]
-        sd[f"Pose_net.ode_func.net.{2 * i}.bias"] = layer["b"]
-    for k, cell in enumerate(pose["rnn"]):
-        for ours, theirs in (("w_ih", "weight_ih"), ("w_hh", "weight_hh"),
-                             ("b_ih", "bias_ih"), ("b_hh", "bias_hh")):
-            sd[f"Pose_net.rnn.{theirs}_l{k}"] = cell[ours]
+    if cfg.model_type == "ode-rnn":
+        _mlp(sd, "Pose_net.ode_func.net", pose["ode_func"])
+        for k, cell in enumerate(pose["rnn"]):
+            for ours, theirs in (("w_ih", "weight_ih"), ("w_hh", "weight_hh"),
+                                 ("b_ih", "bias_ih"), ("b_hh", "bias_hh")):
+                sd[f"Pose_net.rnn.{theirs}_l{k}"] = cell[ours]
+    else:  # cde, rde
+        _mlp(sd, "Pose_net.cde_func.net", pose["cde_func"])
+        _dense(sd, "Pose_net.initial.0", pose["initial"])
+        if cfg.model_type == "cde":
+            _dense(sd, "Pose_net.reduction_net.0", pose["reduction0"])
+            _dense(sd, "Pose_net.reduction_net.2", pose["reduction1"])
+        else:
+            _dense(sd, "Pose_net.reduction_net", pose["reduction"])
     _dense(sd, "Pose_net.regressor.0", pose["regressor"]["fc0"])
     _dense(sd, "Pose_net.regressor.2", pose["regressor"]["fc1"])
 

@@ -3,7 +3,12 @@
 
 Shape contract, the JAX package's layout:
     img (B, S, H, W, 3), imu (B, 10*(S-1)+1, 6), ts (B, S)
-    -> poses (B, S-1, 6), carry (L, B, F), SolveStats
+    -> poses (B, S-1, 6), carry, SolveStats
+
+The carry is the pose core's: (L, B, F) for ode-rnn; (B, H) for cde and
+rde, or in their history mode a dict of (B, ...) tensors.
+:attr:`DeepVIO.carry_lane_axis` is the axis of its leaves that indexes
+the batch lanes.
 
 Submodules carry the reference names (``Image_net``, ``Inertial_net``,
 ``Pose_net``), so ``state_dict()`` is in the reference layout that
@@ -18,31 +23,42 @@ import torch
 from torch import nn
 
 from ode_vio_tpu_torch.config import Config, ModelConfig, SolverConfig, resolve_device
-from ode_vio_tpu_torch.models.common import init_weights
+from ode_vio_tpu_torch.models.common import Carry, init_weights
 from ode_vio_tpu_torch.models.encoders import ImageEncoder, InertialEncoder
+from ode_vio_tpu_torch.models.pose_cde import PoseCDE
 from ode_vio_tpu_torch.models.pose_odernn import PoseODERNN
+from ode_vio_tpu_torch.models.pose_rde import PoseRDE
 
 POSE_CORES = ("ode-rnn", "rnn", "cde", "rde", "cfc", "ltc")
 
 
 class DeepVIO(nn.Module):
-    def __init__(self, cfg: ModelConfig, solver: SolverConfig = SolverConfig()):
+    def __init__(self, cfg: ModelConfig, solver: SolverConfig = SolverConfig(),
+                 cde_solver: SolverConfig = SolverConfig(rtol=1e-4, atol=1e-6)):
         super().__init__()
         mt = cfg.model_type
         if mt not in POSE_CORES:
             raise ValueError(f"model_type '{mt}' not supported; choose from {POSE_CORES}")
-        if mt != "ode-rnn":
+        if mt in ("rnn", "cfc", "ltc"):
             raise NotImplementedError(
                 f"the '{mt}' pose core is not ported yet (ROADMAP.md, "
                 "Queue 1 item 6: other pose cores)")
         self.cfg = cfg
         self.solver = solver
+        self.cde_solver = cde_solver
         self.Image_net = ImageEncoder(cfg)
         self.Inertial_net = InertialEncoder(cfg)
-        self.Pose_net = PoseODERNN(cfg, solver)
+        if mt == "ode-rnn":
+            self.Pose_net = PoseODERNN(cfg, solver)
+        else:
+            self.Pose_net = (PoseCDE if mt == "cde" else PoseRDE)(cfg, cde_solver)
+
+    @property
+    def carry_lane_axis(self) -> int:
+        return self.Pose_net.carry_lane_axis
 
     def forward(self, img: torch.Tensor, imu: torch.Tensor, ts: torch.Tensor,
-                hc: Optional[torch.Tensor] = None,
+                hc: Optional[Carry] = None,
                 generator: Optional[torch.Generator] = None):
         fv = self.Image_net(img)
         fi = self.Inertial_net(imu)
@@ -53,6 +69,6 @@ def create_model(config: Config, *, seed: int = 0, device="cuda") -> DeepVIO:
     """Build DeepVIO in eval mode on ``device`` with the reference's init
     drawn from a CPU ``torch.Generator`` seeded with ``seed``."""
     device = resolve_device(device)
-    model = DeepVIO(config.model, config.solver)
+    model = DeepVIO(config.model, config.solver, config.cde_solver_cfg)
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(device).eval()

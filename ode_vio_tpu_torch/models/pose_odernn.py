@@ -14,61 +14,23 @@ The solve runs the fused CUDA kernel (``ops/cuda_kernels.py``) when
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Optional
 
 import torch
 from torch import nn
 
 from ode_vio_tpu_torch.config import ModelConfig, SolverConfig
-from ode_vio_tpu_torch.models.common import PoseRegressor
+from ode_vio_tpu_torch.models.common import MLPField, PoseRegressor, SolveStats
 from ode_vio_tpu_torch.models.fusion import FusionModule
 from ode_vio_tpu_torch.ops.cuda_kernels import fused_ode_solve
-from ode_vio_tpu_torch.ops.mlp import apply_mlp, get_activation, ode_func_sizes
+from ode_vio_tpu_torch.ops.mlp import ode_func_sizes
 from ode_vio_tpu_torch.ops.rnn_cells import step_stack
 from ode_vio_tpu_torch.ops.solvers.odeint import SolverOptions, solve_ivp_dt
 
 
-class SolveStats(NamedTuple):
-    """Step counts of one forward: totals of accepted and rejected steps,
-    and per lane (B,) the (layer, interval) solves that ran out of
-    ``max_steps`` before reaching their interval's end."""
-
-    accepted: torch.Tensor
-    rejected: torch.Tensor
-    incomplete: torch.Tensor
-
-
-class Activation(nn.Module):
-    def __init__(self, name: str):
-        super().__init__()
-        self.name = name
-        self.fn = get_activation(name)
-
-    def forward(self, x):
-        return self.fn(x)
-
-
-class ODEFunc(nn.Module):
-    """The autonomous latent field f(t, h) = MLP(h), tanh-bounded; linear
-    layers at the reference indices ``net.0``, ``net.2``, ..."""
-
-    def __init__(self, sizes, activation: str):
-        super().__init__()
-        self.activation = activation
-        mods = []
-        for i in range(len(sizes) - 1):
-            mods.append(nn.Linear(sizes[i], sizes[i + 1]))
-            mods.append(Activation(activation) if i < len(sizes) - 2 else nn.Tanh())
-        self.net = nn.Sequential(*mods)
-
-    def layers(self):
-        return [(m.weight, m.bias) for m in self.net if isinstance(m, nn.Linear)]
-
-    def forward(self, t, y):
-        return apply_mlp(self.layers(), y, self.activation)
-
-
 class PoseODERNN(nn.Module):
+    carry_lane_axis = 1  # carry (L, B, F)
+
     def __init__(self, cfg: ModelConfig, solver: SolverConfig):
         super().__init__()
         if cfg.ode_rnn_type not in ("rnn", "gru"):
@@ -78,7 +40,7 @@ class PoseODERNN(nn.Module):
         self.opts = SolverOptions.from_config(solver)
         F = cfg.f_len
         self.fuse = FusionModule(F, cfg.fuse_method)
-        self.ode_func = ODEFunc(
+        self.ode_func = MLPField(
             ode_func_sizes(F, cfg.ode_hidden_dim, cfg.ode_fn_num_layers),
             cfg.ode_activation_fn)
         rnn = nn.GRU if cfg.ode_rnn_type == "gru" else nn.RNN

@@ -64,3 +64,17 @@ def apply_mlp(layers: Sequence[Layer], x: torch.Tensor, activation: str,
 def ode_func_sizes(feature_dim: int, hidden_dim: int, num_hidden_layers: int):
     """feature -> hidden x num_hidden_layers -> feature."""
     return [feature_dim] + [hidden_dim] * num_hidden_layers + [feature_dim]
+
+
+def cde_func_sizes(input_dim: int, hidden_dim: int, num_hidden_layers: int):
+    """hidden -> hidden x num_hidden_layers -> hidden*input_dim, reshaped to
+    the (hidden, input_dim) CDE field matrix."""
+    return [hidden_dim] + [hidden_dim] * num_hidden_layers + [hidden_dim * input_dim]
+
+
+def apply_cde_func(layers: Sequence[Layer], z: torch.Tensor, activation: str,
+                   hidden_dim: int, input_dim: int) -> torch.Tensor:
+    """The CDE field g(z): (..., hidden) -> (..., hidden, input_dim), the
+    last layer's outputs h-major (output h*input_dim + c is entry (h, c))."""
+    out = apply_mlp(layers, z, activation)
+    return out.reshape(out.shape[:-1] + (hidden_dim, input_dim))

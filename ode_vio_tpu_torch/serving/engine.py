@@ -4,35 +4,52 @@
 Sessions are lanes of one fixed-size batch of ``max_sessions``:
 
 * Each session's hidden state lives in its lane of the carry on the
-  device. For the ode-rnn core the carry is ``(L, B, F)``, the lane on
-  axis 1.
+  device. The carry is a tensor or a dict of tensors, and the pose core
+  declares the axis of every leaf that indexes the lanes
+  (``model.carry_lane_axis``): 1 for the ode-rnn's ``(L, B, F)``, 0 for
+  the cde/rde ``(B, H)`` and for each leaf of their history-mode dict
+  (``z0 (B, H)``, ``buf (B, K, D)``, ``cnt (B,)``). Here the port differs
+  on purpose from ``ode_vio_tpu/serving/engine.py``, which takes axis 1
+  for every leaf of 3 or more dims, the history ring buffer included.
 * Idle lanes replay their previous window (or a zero prototype) and
   their carry is restored afterwards, so an idle session never advances.
 * A fresh session gets a zeroed lane carry and its clock re-based to 0.
+  A session that opens after the engine's first step therefore starts
+  from a zero state, for cde/rde z0 = 0 and not ``tanh(initial(obs0))``,
+  as in the JAX engine.
 * Truncated-solve counts accumulate only for lanes that served a real
   window.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ode_vio_tpu_torch.config import resolve_device
+from ode_vio_tpu_torch.models.common import Carry
 from ode_vio_tpu_torch.training.loop import make_infer_fn
 
 Window = Tuple[np.ndarray, np.ndarray, np.ndarray]  # (imgs, imus, ts)
 
-LANE_AXIS = 1  # carry (L, B, F)
+
+def _leaves(fn: Callable, carry: Carry, *others: Carry) -> Carry:
+    """``fn`` on each leaf of ``carry`` (and the same leaf of ``others``)."""
+    if isinstance(carry, dict):
+        return {k: fn(v, *(o[k] for o in others)) for k, v in carry.items()}
+    return fn(carry, *others)
 
 
-def _select_lanes(mask: torch.Tensor, new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+def _select_lanes(mask: torch.Tensor, new: Carry, old: Carry, axis: int) -> Carry:
     """Lanes with mask=True take ``new``, the others ``old``."""
-    shape = [1] * new.dim()
-    shape[LANE_AXIS] = mask.shape[0]
-    return torch.where(mask.reshape(shape), new, old)
+    def sel(a, b):
+        shape = [1] * a.dim()
+        shape[axis] = mask.shape[0]
+        return torch.where(mask.reshape(shape), a, b)
+
+    return _leaves(sel, new, old)
 
 
 class StreamingEngine:
@@ -47,13 +64,14 @@ class StreamingEngine:
                  fold_bn: bool = True, *, device="cuda"):
         self.device = resolve_device(device)
         self.N = int(max_sessions)
+        self._axis = model.carry_lane_axis
         self._infer = make_infer_fn(model, state_dict, fold_bn=fold_bn,
                                     device=self.device)
         self._free = list(range(self.N - 1, -1, -1))
         self._open: set = set()
         self._fresh: set = set()
         self._t_off = np.zeros(self.N, np.float64)
-        self._carry: Optional[torch.Tensor] = None
+        self._carry: Optional[Carry] = None
         self._last: Dict[int, Window] = {}
         self._proto: Optional[Window] = None
 
@@ -66,7 +84,7 @@ class StreamingEngine:
         self._fresh.add(lane)
         if self._carry is not None:
             with torch.inference_mode():  # the carry is the engine's own
-                self._carry[:, lane] = 0
+                _leaves(lambda leaf: leaf.select(self._axis, lane).zero_(), self._carry)
         return lane
 
     def close_session(self, sid: int) -> None:
@@ -116,10 +134,11 @@ class StreamingEngine:
         if self._carry is None:
             poses, carry = self._infer(imgs, imus, ts, None, active=active)
             # lanes that did not really start yet stay zeroed
-            self._carry = _select_lanes(mask, carry, torch.zeros_like(carry))
+            self._carry = _select_lanes(mask, carry, _leaves(torch.zeros_like, carry),
+                                        self._axis)
         else:
             poses, carry = self._infer(imgs, imus, ts, self._carry, active=active)
-            self._carry = _select_lanes(mask, carry, self._carry)
+            self._carry = _select_lanes(mask, carry, self._carry, self._axis)
         poses = poses.cpu().numpy()
         return {sid: poses[sid] for sid in windows}
 
@@ -135,10 +154,13 @@ class StreamingEngine:
         self._infer(imgs, imus, ts, carry, active=inactive)[0].cpu()
         self._infer.reset_incomplete()
 
-    def hidden(self, sid: int) -> Optional[torch.Tensor]:
-        """A copy of session ``sid``'s carried hidden state (L, F), or None
-        before the first step."""
-        return None if self._carry is None else self._carry[:, sid].clone()
+    def hidden(self, sid: int) -> Optional[Carry]:
+        """A copy of session ``sid``'s lane of the carry (each leaf without
+        its lane axis: (L, F) for ode-rnn, (H,) for cde/rde), or None before
+        the first step."""
+        if self._carry is None:
+            return None
+        return _leaves(lambda leaf: leaf.select(self._axis, sid).clone(), self._carry)
 
     def incomplete(self) -> int:
         """Running total of ODE solves truncated by the step budget,

@@ -40,7 +40,7 @@ def make_infer_fn(model: DeepVIO, state_dict: Optional[Dict[str, torch.Tensor]] 
     if strip_bn:
         cfg = dataclasses.replace(cfg, skip_bn=True)
     with torch.device("meta"):
-        net = DeepVIO(cfg, model.solver)
+        net = DeepVIO(cfg, model.solver, model.cde_solver)
     net = net.to_empty(device=device).eval()
 
     def set_variables(sd: Dict[str, torch.Tensor]) -> None:

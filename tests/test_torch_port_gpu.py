@@ -1,9 +1,11 @@
-"""Kernel K1 (fused_ode_solve) against its plain PyTorch version on the
-card. These tests need a CUDA device and skip without one; this file
-imports no JAX, so on the GPU machine they run with
+"""Kernels K1 (fused_ode_solve) and K2 (fused_cde_solve) against their
+plain PyTorch versions on the card. These tests need a CUDA device and
+skip without one; this file imports no JAX, so on the GPU machine they run
+from the repository's root with
 
     python -m pytest --noconftest -m gpu tests/test_torch_port_gpu.py
-"""
+
+K2's cases are chip_smoke.py's CDE_CASES, checked by its check_cde_case."""
 
 import numpy as np
 import pytest
@@ -72,3 +74,26 @@ def test_kernel_matches_plain_on_gpu(n, feat, hidden, zero_rows, gain, dt0_all, 
     for k in must_reach:  # the controller branch the case is built to reach
         assert int(out[k].sum()) > 0
     assert torch.equal(out[1][list(zero_rows)], dt0[list(zero_rows)])
+
+
+CDE_CASE_NAMES = ("main", "cubic", "history_prefix", "rde_off_knots", "n5_ragged", "rejects",
+                  "budget", "history_c54", "history_c24", "advance_collapsed", "advance_full")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("index,name", list(enumerate(CDE_CASE_NAMES)))
+def test_k2_matches_plain_on_gpu(index, name):
+    """Per-row counts equal, the case's branch reached (rejected steps,
+    zero-length segments, the step budget), zs within the rounding's reach,
+    one launch counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    import chip_smoke
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    case = chip_smoke.CDE_CASES[index]
+    assert case[0] == name
+    before = cuda_kernels.fused_cde_solve.launches
+    out = chip_smoke.check_cde_case(case, torch.device("cuda"), chip_smoke.SEED + index)
+    assert cuda_kernels.fused_cde_solve.launches == before + 1
+    assert out["max_abs_err"] <= out["zs_atol"]

@@ -63,3 +63,34 @@ def test_kernel_wrapper_raises_off_cuda_and_cpu():
     layers = [(torch.zeros(4, 4, device="meta"), torch.zeros(4, device="meta"))]
     with pytest.raises(ValueError, match="runs on cuda or cpu"):
         fused_ode_solve(layers, y, t, t)
+
+
+def test_k2_wrapper_raises_off_cuda_and_cpu():
+    from ode_vio_tpu_torch.ops.cuda_kernels import fused_cde_solve
+
+    z = torch.zeros(2, 4, device="meta")
+    ts = torch.zeros(2, 3, device="meta")
+    b = torch.zeros(2, 2, 5, device="meta")
+    layers = [(torch.zeros(4, 4, device="meta"), torch.zeros(4, device="meta")),
+              (torch.zeros(20, 4, device="meta"), torch.zeros(20, device="meta"))]
+    with pytest.raises(ValueError, match="runs on cuda or cpu"):
+        fused_cde_solve(layers, z, ts, b, None, None, ts)
+
+
+@pytest.mark.parametrize("model_type", ["cde", "rde"])
+def test_cde_and_rde_models_default_to_cuda(model_type):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid here")
+    from ode_vio_tpu_torch.config import Config, ModelConfig
+    from ode_vio_tpu_torch.models.deepvio import create_model
+    from ode_vio_tpu_torch.serving import StreamingEngine
+
+    cfg = Config(model=ModelConfig(model_type=model_type, img_h=64, img_w=128, seq_len=3,
+                                   v_f_len=32, i_f_len=16, cde_hidden_dim=8,
+                                   compute_dtype="float32"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        create_model(cfg)
+    model = create_model(cfg, device="cpu")
+    assert model.cde_solver == cfg.cde_solver_cfg
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        StreamingEngine(model, max_sessions=2)

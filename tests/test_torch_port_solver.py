@@ -143,7 +143,7 @@ def test_cpu_wrapper_takes_plain_version_and_equals_solver_core():
     out = cuda_kernels.fused_ode_solve(layers, *args, activation="softplus",
                                        dt0=torch.from_numpy(dt0), **KW)
     assert cuda_kernels.fused_ode_solve.launches == before
-    assert cuda_kernels._lib is None  # nothing was built
+    assert cuda_kernels._libs is None  # nothing was built
     plain = cuda_kernels.fused_ode_solve_plain(
         layers, *args, torch.from_numpy(dt0), activation="softplus",
         method="dopri5", safety=0.9, factor_min=0.2, factor_max=10.0, **KW)
