@@ -4,8 +4,9 @@
 
 Phases, one line each, any failure ends the run with a non-zero exit:
   env     the card, its power limit; TF32 off for matmuls and convs
-  build   nvcc builds ode_vio_tpu_torch/csrc/fused_ode_solve.cu and
-          fused_cde_solve.cu (sm_90a), both nvcc runs started together
+  build   nvcc builds ode_vio_tpu_torch/csrc/fused_ode_solve.cu,
+          fused_cde_solve.cu and fused_dropout.cu (sm_90a), the nvcc runs
+          started together
   kernel  K1 fused_ode_solve against its plain PyTorch version at the
           flagship field (softplus 768->1024->1024->768, dopri5, rtol 1e-2,
           atol 1e-6, max_steps 64): N = 3*4 rows, ragged N = 5, zero-length
@@ -42,6 +43,31 @@ Phases, one line each, any failure ends the run with a non-zero exit:
           through K2 and through use_kernels=False (no K2 launch); poses
           must agree within 4x how far rounding alone moves them there
           (the pose core in float32 vs float64)
+  kernel_dropout  K3 fused_dropout against its plain PyTorch version, bit
+          for bit (torch.equal), forward and backward (the autograd
+          Function with the kernel and with the plain version): the nine
+          trunk activations at B=2 in bf16 at the trunk's rates, an odd-size
+          float32 tensor at rates 0.2, 0.5 and 0.999, a bf16 tensor not
+          aligned to a 4-element group; the keep fraction within 4 sigma.
+          Then times with CUDA events at B=16 (the largest activation and
+          the nine of one step) beside the plain version and F.dropout
+  train   the flagship train config (frozen image encoder in train mode,
+          trunk dropout through K3) for 4 steps at B=16 on seeded batches
+          with frame intervals of 0.08-0.13 s: finite losses, 9 K3 and 0 K1
+          launches per step, frozen image weights bitwise unchanged, its
+          BatchNorm statistics and the trained params moved
+  train_encoder  the same with the image encoder trained (freeze_encoder
+          False): 18 K3 launches per step (forward and backward), image
+          weights moved
+  train_frozen_eval  the flagship train config with frozen_encoder_eval:
+          the image encoder's folded inference graph, 0 K3 launches, its
+          weights and statistics unchanged
+  train_plain  the first train step twice from one init and generator
+          seed, with K3 and with use_kernels=False (0 K3 launches), cuDNN
+          deterministic: the losses within 1e-6 relative
+  profile_train  one train step under torch.profiler: device busy and
+          idle share, K3's and the convolutions' share, the solver's
+          early-exit checks (host syncs)
   seconds  each phase's wall time
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero and prints
@@ -52,6 +78,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -60,13 +87,17 @@ import time
 import numpy as np
 import torch
 
+import torch.nn.functional as F
+
 from ode_vio_tpu_torch.config import flagship_config
 from ode_vio_tpu_torch.models.deepvio import DeepVIO, create_model
+from ode_vio_tpu_torch.models.encoders import TRUNK, TRUNK_NAMES
 from ode_vio_tpu_torch.ops import cuda_kernels
 from ode_vio_tpu_torch.ops.interpolation import make_path
 from ode_vio_tpu_torch.ops.mlp import cde_func_sizes, init_mlp, ode_func_sizes
-from ode_vio_tpu_torch.ops.solvers import get_tableau
+from ode_vio_tpu_torch.ops.solvers import get_tableau, odeint
 from ode_vio_tpu_torch.serving import StreamingEngine
+from ode_vio_tpu_torch.training.loop import create_train_state, make_train_step
 
 SEED = 0
 SESSIONS = 4
@@ -648,6 +679,268 @@ def cde_phases(dev) -> dict:
     return {"cde": n_cde, "cde_history": n_hist, "rde": n_rde}
 
 
+def trunk_shapes(batch: int):
+    """(name, NCHW shape, dropout rate) of the conv trunk's nine
+    activations for ``batch`` windows of the flagship configuration."""
+    m = flagship_config().model
+    h, w, n = m.img_h, m.img_w, batch * (m.seq_len - 1)
+    out = []
+    for name, (c, _, stride, rate) in zip(TRUNK_NAMES, TRUNK):
+        h, w = (h - 1) // stride + 1, (w - 1) // stride + 1
+        out.append((name, (n, c, h, w), rate))
+    return out
+
+
+# (name, shape, dtype, rate, element offset): the trunk's nine activations
+# at B=2 in bf16 at their own rates; an odd-size float32 tensor (a tail of 3
+# after the 4-element groups) at 0.2, 0.5 and 0.999; a bf16 tensor one
+# element off a group's alignment (the kernel's scalar path)
+DROPOUT_CASES = tuple((f"{name}_b2", shape, torch.bfloat16, rate, 0)
+                      for name, shape, rate in trunk_shapes(2)) + (
+    ("odd_f32_r0.2", (3, 5, 7, 11), torch.float32, 0.2, 0),
+    ("odd_f32_r0.5", (3, 5, 7, 11), torch.float32, 0.5, 0),
+    ("odd_f32_r0.999", (3, 5, 7, 11), torch.float32, 0.999, 0),
+    ("unaligned_bf16", (1000003,), torch.bfloat16, 0.2, 1),
+)
+
+
+def check_dropout_case(case, dev, seed: int, channels_last: bool = False) -> dict:
+    """One of DROPOUT_CASES through K3 and its plain version: forward and
+    backward (FusedDropout with each) equal bit for bit, one launch each
+    way, the keep fraction within 4 binomial sigmas. ``channels_last``
+    lays out the input and the gradient as cuDNN gives the trunk's
+    activations (dense, not contiguous)."""
+    name, shape, dtype, rate, offset = case
+    gen = torch.Generator(dev).manual_seed(seed)
+    n = math.prod(shape)
+    x = (0.5 + torch.rand(n + offset, generator=gen, device=dev)).to(dtype)[offset:].view(shape)
+    g = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    if channels_last:
+        x, g = (t.contiguous(memory_format=torch.channels_last) for t in (x, g))
+        if x.is_contiguous():
+            raise AssertionError(f"{name}: a channels-last {shape} is contiguous")
+    key = int(torch.randint(0, 2 ** 62, (), generator=torch.Generator().manual_seed(seed)))
+    n0 = cuda_kernels.fused_dropout.launches
+    outs = {}
+    for kernel in (True, False):
+        xi = x.detach().requires_grad_()
+        y = cuda_kernels.FusedDropout.apply(xi, key, rate, kernel)
+        y.backward(g)
+        outs[kernel] = (y.detach(), xi.grad)
+    torch.cuda.synchronize()
+    if cuda_kernels.fused_dropout.launches - n0 != 2:
+        raise AssertionError(f"{name}: {cuda_kernels.fused_dropout.launches - n0} K3 "
+                             "launches for one forward and one backward, expected 2")
+    for k, what in ((0, "forward"), (1, "backward")):
+        if not torch.equal(outs[True][k], outs[False][k]):
+            bad = int((outs[True][k] != outs[False][k]).sum())
+            raise AssertionError(f"{name}: {what} differs from the plain version in {bad} "
+                                 f"of {n} elements")
+    keep = float((outs[True][0] != 0).double().mean())
+    sigma = math.sqrt(rate * (1 - rate) / n)
+    if abs(keep - (1 - rate)) > 4 * sigma:
+        raise AssertionError(f"{name}: keep fraction {keep}, expected {1 - rate} "
+                             f"(4 sigma = {4 * sigma})")
+    return {"elements": n, "keep": keep, "keep_sigmas": (keep - (1 - rate)) / sigma}
+
+
+def dropout_bound(tensors) -> dict:
+    """K3's bound on ``tensors``: each element read once and written once,
+    at the HBM rate (Philox's integer work is far below the card's rate)."""
+    nbytes = sum(2 * t.numel() * t.element_size() for t in tensors)
+    return {"bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+
+
+def kernel_dropout_check(dev) -> dict:
+    cases = {c[0]: check_dropout_case(c, dev, SEED + i) for i, c in enumerate(DROPOUT_CASES)}
+    batch = flagship_config().train.batch_size
+    # the main path's calls as the trunk makes them: the nine activations
+    # at B=16, channels-last, through FusedDropout forward and backward
+    for i, (name, shape, rate) in enumerate(trunk_shapes(batch)):
+        case = (f"{name}_b{batch}_channels_last", shape, torch.bfloat16, rate, 0)
+        cases[case[0]] = check_dropout_case(case, dev, SEED + 100 + i, channels_last=True)
+        torch.cuda.empty_cache()
+    # the same nine calls on contiguous tensors: equal outputs, then times
+    gen = torch.Generator(dev).manual_seed(SEED)
+    acts = [(name, torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16), rate)
+            for name, shape, rate in trunk_shapes(batch)]
+    keys = [1 + i for i in range(len(acts))]
+
+    def run(fn):
+        return lambda: [fn(x, k, r) for (_, x, r), k in zip(acts, keys)]
+
+    kernel = run(cuda_kernels.fused_dropout)
+    plain = run(cuda_kernels.fused_dropout_plain)
+    library = run(lambda x, k, r: F.dropout(x, r, training=True))
+    for (name, x, _), yk, yp in zip(acts, kernel(), plain()):
+        if not torch.equal(yk, yp):
+            raise AssertionError(f"{name}_b{batch}: K3 differs from the plain version in "
+                                 f"{int((yk != yp).sum())} of {x.numel()} elements")
+        del yk, yp
+    x0, r0 = acts[0][1], acts[0][2]                  # conv1's, the largest
+    one = lambda fn: (lambda: fn(x0, 1, r0))  # noqa: E731
+    times = {"ms": cuda_ms(kernel, runs=10), "plain_ms": cuda_ms(plain, runs=3, warmup=1),
+             "library_ms": cuda_ms(library, runs=10)}
+    times_largest = {"ms": cuda_ms(one(cuda_kernels.fused_dropout), runs=10),
+                     "plain_ms": cuda_ms(one(cuda_kernels.fused_dropout_plain), runs=3, warmup=1),
+                     "library_ms": cuda_ms(one(lambda x, k, r: F.dropout(x, r, training=True)),
+                                           runs=10)}
+    bd, bd_largest = dropout_bound([x for _, x, _ in acts]), dropout_bound([x0])
+    phase("kernel_dropout", name="fused_dropout", cases=cases, max_abs_err=0.0,
+          step_b16={"calls": len(acts), "elements": sum(x.numel() for _, x, _ in acts),
+                    **times, **bd},
+          largest_b16={"shape": list(x0.shape), **times_largest, **bd_largest})
+    del acts, x0
+    torch.cuda.empty_cache()
+    return {"max_abs_err": 0.0, **times, "bound_ms": bd["bound_ms"], "bound_by": "bytes"}
+
+
+def train_batches(cfg, n: int, dev, seed: int):
+    """``n`` seeded batches of ``cfg.train.batch_size`` windows on the
+    card: images and IMU samples as the served windows, poses N(0, 0.1^2),
+    frame intervals 0.08-0.13 s."""
+    m, B = cfg.model, cfg.train.batch_size
+    S = m.seq_len
+    gen = torch.Generator(dev).manual_seed(seed)
+    rand = lambda *shape: torch.rand(shape, generator=gen, device=dev)  # noqa: E731
+    return [(rand(B, S, m.img_h, m.img_w, 3) - 0.5,
+             torch.randn((B, 10 * (S - 1) + 1, 6), generator=gen, device=dev),
+             0.1 * torch.randn((B, S - 1, 6), generator=gen, device=dev),
+             torch.cumsum(0.08 + 0.05 * rand(B, S), 1)) for _ in range(n)]
+
+
+def train_config(**train_fields):
+    cfg = flagship_config()
+    return dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, **train_fields))
+
+
+def run_train(name: str, cfg, dev, steps: int, k3_per_step: int):
+    """``steps`` train steps of ``cfg`` (seeded init and batches) with the
+    launch counts set to 0 just before and read just after. Checks the
+    losses, the launches per step, which weights moved and which did not.
+    Returns the state, the step function, a batch and the K3 launches."""
+    model = create_model(cfg, seed=SEED, device=dev, train=True)
+    state = create_train_state(cfg, model, device=dev)
+    step = make_train_step(cfg, device=dev)
+    batches = train_batches(cfg, steps, dev, SEED)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    k1, k3 = cuda_kernels.fused_ode_solve, cuda_kernels.fused_dropout
+    cuda_kernels.reset_launch_counts()          # this path's run starts here
+    rows = []
+    for b in batches:
+        n0, syncs = (k3.launches, k1.launches), odeint.host_syncs
+        t = time.perf_counter()
+        state, m = step(state, *b)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        rows.append({"ms": (time.perf_counter() - t) * 1e3, "loss": loss,
+                     "grad_norm": float(m["grad_norm"]),
+                     "solver_incomplete": int(m["solver_incomplete"]),
+                     "k3": k3.launches - n0[0], "k1": k1.launches - n0[1],
+                     "host_syncs": odeint.host_syncs - syncs})
+    launches = k3.launches
+    for i, r in enumerate(rows):
+        if not math.isfinite(r["loss"]):
+            raise AssertionError(f"{name}: step {i} loss {r['loss']}")
+        if (r["k3"], r["k1"]) != (k3_per_step, 0):
+            raise AssertionError(f"{name}: step {i} launched K3 {r['k3']} and K1 {r['k1']} "
+                                 f"times, expected {k3_per_step} and 0")
+    after = model.state_dict()
+    frozen = cfg.train.freeze_encoder
+    eval_graph = frozen and cfg.train.frozen_encoder_eval
+    moved = {k for k in after if not torch.equal(after[k], before[k])}
+    image_w = {k for k in after if k.startswith("Image_net.")
+               and not k.endswith(("running_mean", "running_var", "num_batches_tracked"))}
+    image_stats = {k for k in after if k.startswith("Image_net.") and "running_" in k}
+    pose = {k for k in after if k.startswith("Pose_net.")}
+    if frozen and moved & image_w:
+        raise AssertionError(f"{name}: frozen image weights changed: {sorted(moved & image_w)[:4]}")
+    if not frozen and image_w - moved:
+        raise AssertionError(f"{name}: image weights did not move: {sorted(image_w - moved)[:4]}")
+    if eval_graph and moved & image_stats:
+        raise AssertionError(f"{name}: the folded encoder's statistics changed")
+    stay = pose | (set() if eval_graph else image_stats)
+    if stay - moved:
+        raise AssertionError(f"{name}: unchanged: {sorted(stay - moved)[:4]}")
+    phase(name, batch=cfg.train.batch_size, steps=rows, launches=launches,
+          p50_step_ms_after_first=statistics.median(r["ms"] for r in rows[1:]),
+          peak_memory_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+          image_weights_moved=len(moved & image_w), image_stats_moved=len(moved & image_stats),
+          pose_params_moved=len(moved & pose))
+    return state, step, batches[0], launches
+
+
+def train_plain(dev) -> int:
+    """The first train step with K3 and with its plain version: the same
+    init, generator seed and batch, cuDNN deterministic."""
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    batch = train_batches(flagship_config(), 1, dev, SEED)[0]
+    losses, launches = {}, {}
+    for use in (True, False):
+        cfg = flagship_config()
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, use_kernels=use))
+        state = create_train_state(cfg, create_model(cfg, seed=SEED, device=dev, train=True),
+                                   device=dev)
+        step = make_train_step(cfg, device=dev)
+        cuda_kernels.reset_launch_counts()
+        _, m = step(state, *batch)
+        losses[use] = float(m["loss"])
+        launches[use] = cuda_kernels.fused_dropout.launches
+        del state
+    torch.backends.cudnn.deterministic = False
+    rel = abs(losses[True] - losses[False]) / abs(losses[False])
+    phase("train_plain", loss_k3=losses[True], loss_plain=losses[False], rel_diff=rel,
+          k3_launches=launches[True], k3_launches_plain=launches[False])
+    if launches != {True: 9, False: 0}:
+        raise AssertionError(f"train_plain: K3 launches {launches}, expected 9 and 0")
+    if rel > 1e-6:
+        raise AssertionError(f"train_plain: losses differ by {rel} relative (> 1e-6)")
+    return launches[True]
+
+
+def profile_train(state, step, batch) -> None:
+    """Device time by kernel over one train step, from torch.profiler; the
+    idle share is the part of the step's wall time with no kernel running
+    (one stream)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    syncs = odeint.host_syncs
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        state, m = step(state, *batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    syncs = odeint.host_syncs - syncs
+    kernels, count = {}, 0
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", 0.0)
+        if dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[ev.key] = kernels.get(ev.key, 0.0) + dev_us / 1e3
+            count += ev.count
+    busy = sum(kernels.values())
+    share = lambda *words: sum(v for k, v in kernels.items()  # noqa: E731
+                               if any(w in k.lower() for w in words))
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    phase("profile_train", wall_ms=wall_ms, device_busy_ms=busy,
+          idle_share=1.0 - busy / wall_ms, device_ops=count,
+          k3_ms=share("fused_dropout"), conv_ms=share("conv", "xmma", "cudnn", "implicit"),
+          solver_host_syncs=syncs, top_kernels_ms={k[:80]: v for k, v in top})
+
+
+def train_phases(dev) -> dict:
+    """The three training paths that run K3; returns its launches on each."""
+    state, step, batch, n_train = run_train("train", train_config(), dev, 4, 9)
+    profile_train(state, step, batch)
+    del state, step, batch
+    _, _, _, n_enc = run_train("train_encoder", train_config(freeze_encoder=False), dev, 3, 18)
+    run_train("train_frozen_eval", train_config(frozen_encoder_eval=True), dev, 3, 0)
+    torch.cuda.empty_cache()
+    return {"train": n_train, "train_encoder": n_enc, "train_plain": train_plain(dev)}
+
+
 def main() -> None:
     seconds = {}
 
@@ -664,6 +957,8 @@ def main() -> None:
     k2 = timed("kernel_cde", kernel_cde_check, dev)
     k1_launches = timed("slice_core", slice_phases, dev)
     k2_by_path = timed("cde_rde", cde_phases, dev)
+    k3 = timed("kernel_dropout", kernel_dropout_check, dev)
+    k3_by_path = timed("train", train_phases, dev)
     phase("seconds", **seconds)
     print(json.dumps({"kernels": [
         {"name": "fused_ode_solve", "route": "cuda",
@@ -674,7 +969,12 @@ def main() -> None:
          "source": "ode_vio_tpu_torch/csrc/fused_cde_solve.cu",
          "replaces": "ode_vio_tpu/ops/pallas_kernels.py:213",
          "launches": sum(k2_by_path.values()), "launches_by_path": k2_by_path,
-         "library_ms": None, **k2}]}), flush=True)
+         "library_ms": None, **k2},
+        {"name": "fused_dropout", "route": "cuda",
+         "source": "ode_vio_tpu_torch/csrc/fused_dropout.cu",
+         "replaces": "ode_vio_tpu/ops/pallas_kernels.py:534",
+         "launches": sum(k3_by_path.values()), "launches_by_path": k3_by_path, **k3}]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}),
           flush=True)

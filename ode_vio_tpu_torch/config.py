@@ -4,8 +4,8 @@ The port's copy of the solver and model dataclasses of the JAX package
 (``ode_vio_tpu/config.py``): same field names, same defaults, so a
 configuration reads the same in both packages. Only the fields that a
 ported module reads are here; the others (training, the adjoint, the
-rnn/cfc/ltc cores, the s2d and int8 encoder rewrites) come with the
-modules that read them.
+rnn/cfc/ltc cores, the s2d and int8 encoder rewrites, the data and
+carry-exposure settings) come with the modules that read them.
 
 One knob changes meaning: the JAX package's ``use_pallas`` tri-state
 becomes :attr:`ModelConfig.use_kernels`, the switch for the port's
@@ -15,6 +15,13 @@ turns its kernel on for every CUDA tensor, because that kernel is what
 the port's inference path is built around. For cde and rde, the families
 where the JAX package turns its fused CDE kernel on by default, the two
 agree.
+
+``ModelConfig.fast_dropout``, the JAX package's "fast mask bits on this
+accelerator" switch for the conv trunk's train-mode dropout, selects the
+port's hand-written dropout kernel K3 (``ops/cuda_kernels.py::
+fused_dropout``, a seeded Philox mask regenerated in the backward pass);
+False takes a plain Bernoulli dropout from the framework's generator, as
+JAX falls back to ``nn.Dropout``.
 """
 
 from __future__ import annotations
@@ -36,9 +43,16 @@ class SolverConfig:
     atol: float = 1e-6
     dt0: float = 1e-4
     max_steps: int = 64          # inference step budget per interval
+    # training's step budget per interval (the bounded, differentiable solve)
+    max_steps_train: int = 16
+    # how training integrates: 'bounded' (masked steps recorded by
+    # autograd) or 'while' (the same in training); 'adjoint' is not ported
+    unroll_mode: str = "bounded"
     safety: float = 0.9          # step controller safety factor
     factor_min: float = 0.2      # max step shrink per step
     factor_max: float = 10.0     # max step growth per step
+    # the bounded solve checks for an early exit once per this many steps
+    exit_chunk: int = 4
 
 
 @dataclass(frozen=True)
@@ -53,12 +67,15 @@ class ModelConfig:
     imu_dropout: float = 0.0
     seq_len: int = 11            # images per window
     fuse_method: str = "cat"     # cat | soft | hard
+    # the conv trunk's train-mode dropout through kernel K3 (see above)
+    fast_dropout: bool = True
 
     ode_hidden_dim: int = 512
     ode_fn_num_layers: int = 3
     ode_activation_fn: str = "tanh"  # tanh | relu | leaky_relu | softplus
     ode_rnn_type: str = "rnn"    # rnn | gru
     rnn_num_layers: int = 2
+    rnn_dropout_out: float = 0.0  # train-mode dropout on the RNN outputs
 
     # CDE core: field z -> hidden x cde_fn_num_layers -> hidden*(hidden+1)
     cde_hidden_dim: int = 128
@@ -101,6 +118,34 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class TrainConfig:
+    """The optimisation schedule: Adam (or SGD with momentum 0.9) after a
+    clip by global norm and weight decay added to the gradient, a
+    three-phase step schedule of the learning rate over epochs."""
+
+    optimizer: str = "adam"      # adam | sgd
+    batch_size: int = 16
+    grad_accumulation_steps: int = 1
+    weight_decay: float = 5e-5
+    epochs_warmup: int = 20
+    epochs_joint: int = 40
+    epochs_fine: int = 40
+    lr_warmup: float = 1e-4
+    lr_joint: float = 1e-5
+    lr_fine: float = 1e-6
+    # the pose regressor's own learning rate, in a group of its own that
+    # the epoch schedule does not touch; None = one group
+    lr_regressor: float | None = None
+    gradient_clip: float = 5.0
+    freeze_encoder: bool = False
+    # with freeze_encoder: the frozen image encoder runs its inference
+    # graph (BatchNorm folded from the current statistics, no dropout)
+    frozen_encoder_eval: bool = False
+    seed: int = 0
+    angle_loss_weight: float = 100.0  # loss = 100*MSE(rot) + MSE(trans)
+
+
+@dataclass(frozen=True)
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     solver: SolverConfig = field(default_factory=SolverConfig)
@@ -108,6 +153,7 @@ class Config:
     # step budget than the ode-rnn's
     cde_solver_cfg: SolverConfig = field(
         default_factory=lambda: SolverConfig(rtol=1e-4, atol=1e-6, max_steps=256))
+    train: TrainConfig = field(default_factory=TrainConfig)
 
 
 def resolve_device(device) -> torch.device:
@@ -123,7 +169,8 @@ def resolve_device(device) -> torch.device:
 
 def flagship_config() -> Config:
     """The canonical ODE-VIO configuration: softplus ODE MLP with 2 hidden
-    layers of 1024, 3 RNN layers, soft fusion, 256x512 images, seq_len 11."""
+    layers of 1024, 3 RNN layers, soft fusion, 256x512 images, seq_len 11,
+    trained with the image encoder frozen."""
     return Config(
         model=ModelConfig(
             model_type="ode-rnn",
@@ -133,4 +180,5 @@ def flagship_config() -> Config:
             rnn_num_layers=3,
             fuse_method="soft",
         ),
+        train=TrainConfig(freeze_encoder=True),
     )

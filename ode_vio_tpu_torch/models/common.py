@@ -1,14 +1,15 @@
-"""Shared model components and the weight init of the reference
-(kaiming-normal conv/linear with zero bias, BatchNorm scale 1 / bias 0,
-stacked RNN/GRU at torch's default uniform)."""
+"""Shared model components, train-mode dropout and the weight init of the
+reference (kaiming-normal conv/linear with zero bias, BatchNorm scale 1 /
+bias 0, stacked RNN/GRU at torch's default uniform)."""
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Union
+from typing import Dict, NamedTuple, Optional, Union
 
 import torch
 from torch import nn
 
+from ode_vio_tpu_torch.ops.cuda_kernels import FusedDropout
 from ode_vio_tpu_torch.ops.mlp import apply_mlp, get_activation
 from ode_vio_tpu_torch.ops.rnn_cells import init_cell
 
@@ -24,6 +25,39 @@ class SolveStats(NamedTuple):
     accepted: torch.Tensor
     rejected: torch.Tensor
     incomplete: torch.Tensor
+
+
+def draw_key(generator: torch.Generator) -> int:
+    """A 64-bit key drawn from ``generator`` (a CPU generator draws it
+    without waiting for the device)."""
+    lo, hi = torch.randint(0, 2 ** 32, (2,), dtype=torch.int64, generator=generator,
+                           device=generator.device).tolist()
+    return lo | hi << 32
+
+
+def on_device(generator: torch.Generator, device: torch.device) -> torch.Generator:
+    """``generator`` where it lies on ``device``, else a generator on
+    ``device`` seeded with a key drawn from it."""
+    if generator.device == device:
+        return generator
+    return torch.Generator(device).manual_seed(draw_key(generator))
+
+
+def train_dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator], *,
+                  fast: bool = False, use_kernels: bool = False) -> torch.Tensor:
+    """Train-mode dropout at ``rate``, its randomness from ``generator``.
+    ``fast``: the keyed Philox mask of kernel K3 (its plain version unless
+    ``use_kernels``), one key per call; else a Bernoulli mask drawn on
+    ``x``'s device, as flax's ``nn.Dropout``. Rate 0 returns ``x``."""
+    if rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("train-mode dropout draws a mask: pass a torch.Generator")
+    if fast:
+        return FusedDropout.apply(x, draw_key(generator), rate, use_kernels)
+    keep = torch.rand(x.shape, generator=on_device(generator, x.device),
+                      device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class Activation(nn.Module):

@@ -60,15 +60,32 @@ class DeepVIO(nn.Module):
     def forward(self, img: torch.Tensor, imu: torch.Tensor, ts: torch.Tensor,
                 hc: Optional[Carry] = None,
                 generator: Optional[torch.Generator] = None):
-        fv = self.Image_net(img)
-        fi = self.Inertial_net(imu)
+        """``generator``: the randomness of train-mode dropout and of hard
+        fusion's Gumbel noise."""
+        fv = self.Image_net(img, generator)
+        return self.pose_from_visual(fv, imu, ts, hc, generator)
+
+    def encode(self, img: torch.Tensor, imu: torch.Tensor,
+               generator: Optional[torch.Generator] = None):
+        """The two encoders alone: (visual, inertial) features."""
+        return self.Image_net(img, generator), self.Inertial_net(imu, generator)
+
+    def pose_from_visual(self, fv: torch.Tensor, imu: torch.Tensor, ts: torch.Tensor,
+                         hc: Optional[Carry] = None,
+                         generator: Optional[torch.Generator] = None):
+        """The forward from visual features ``fv`` computed elsewhere (the
+        frozen image encoder's inference graph in the ``frozen_encoder_eval``
+        train step): the inertial encoder and the pose core."""
+        fi = self.Inertial_net(imu, generator)
         return self.Pose_net(fv, fi, ts, prev=hc, generator=generator)
 
 
-def create_model(config: Config, *, seed: int = 0, device="cuda") -> DeepVIO:
-    """Build DeepVIO in eval mode on ``device`` with the reference's init
-    drawn from a CPU ``torch.Generator`` seeded with ``seed``."""
+def create_model(config: Config, *, seed: int = 0, device="cuda",
+                 train: bool = False) -> DeepVIO:
+    """Build DeepVIO on ``device`` with the reference's init drawn from a
+    CPU ``torch.Generator`` seeded with ``seed``, in eval mode, or in train
+    mode with ``train``."""
     device = resolve_device(device)
     model = DeepVIO(config.model, config.solver, config.cde_solver_cfg)
     init_weights(model, torch.Generator().manual_seed(seed))
-    return model.to(device).eval()
+    return model.to(device).train(train)

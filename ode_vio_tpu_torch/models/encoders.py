@@ -15,19 +15,29 @@ statistics stay float32, applied as flax applies them
 the outputs are float32. With ``skip_bn`` (the folded inference graph,
 models/fold.py) each conv carries the folded shift as its bias and the
 BatchNorm slots hold ``nn.Identity``, so state_dict indices do not move.
+
+In train mode (``module.train()``) BatchNorm takes the batch statistics
+as flax computes them (``use_fast_variance``: ``mean(x^2) - mean(x)^2``
+in float32, clipped at 0) and moves its running statistics 0.1 of the
+way to them, the variance biased; dropout draws from the ``generator``
+the forward is given: the conv trunk through kernel K3 when
+``fast_dropout`` (``models/common.py::train_dropout``), the IMU encoder a
+Bernoulli mask.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ode_vio_tpu_torch.config import ModelConfig
+from ode_vio_tpu_torch.models.common import train_dropout
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.9  # flax's: running = 0.9 * running + 0.1 * batch
 
 # reference conv-trunk names and (features, kernel, stride, dropout)
 TRUNK_NAMES = ("conv1", "conv2", "conv3", "conv3_1", "conv4",
@@ -55,11 +65,22 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _batchnorm_f32(x: torch.Tensor, bn: nn.BatchNorm1d | nn.BatchNorm2d):
-    """Inference BatchNorm in float32, as flax's ``_normalize`` computes it."""
+    """BatchNorm over (N, C, ...) in float32, as flax's ``_normalize``
+    computes it: with the batch statistics in train mode (updating the
+    running ones), else with the running statistics."""
+    if bn.training:
+        dims = [0, *range(2, x.dim())]
+        xf = x.float()
+        mean = xf.mean(dims)
+        var = torch.clamp_min((xf * xf).mean(dims) - mean * mean, 0.0)
+        with torch.no_grad():
+            bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean + (1 - BN_MOMENTUM) * mean)
+            bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1 - BN_MOMENTUM) * var)
+    else:
+        mean, var = bn.running_mean, bn.running_var
     shape = (1, -1) + (1,) * (x.dim() - 2)
-    mul = torch.rsqrt(bn.running_var + BN_EPS) * bn.weight
-    return (x.float() - bn.running_mean.reshape(shape)) * mul.reshape(shape) \
-        + bn.bias.reshape(shape)
+    mul = torch.rsqrt(var + BN_EPS) * bn.weight
+    return (x.float() - mean.reshape(shape)) * mul.reshape(shape) + bn.bias.reshape(shape)
 
 
 def _bias(layer: nn.Module, dtype: torch.dtype):
@@ -80,36 +101,45 @@ class ConvBlock(nn.Sequential):
             nn.Dropout(dropout),
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                fast_dropout: bool = True, use_kernels: bool = False) -> torch.Tensor:
         conv, bn = self[0], self[1]
         dtype = x.dtype
         x = F.conv2d(x, conv.weight.to(dtype), _bias(conv, dtype),
                      conv.stride, conv.padding)
         if isinstance(bn, nn.BatchNorm2d):
             x = _batchnorm_f32(x, bn).to(dtype)
-        return self[3](F.leaky_relu(x, 0.1))
+        x = F.leaky_relu(x, 0.1)
+        if not self.training:
+            return x
+        return train_dropout(x, self[3].p, generator, fast=fast_dropout,
+                             use_kernels=use_kernels)
 
 
 class ImageEncoder(nn.Module):
-    """(B, S, H, W, 3) frames -> (B, S-1, v_f_len) frame-pair features."""
+    """(B, S, H, W, 3) frames -> (B, S-1, v_f_len) frame-pair features.
+    ``trunk``: the blocks' (features, kernel, stride, dropout), the flax
+    module's ``TRUNK`` field."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, trunk: Sequence[Tuple[int, int, int, float]] = TRUNK):
         super().__init__()
         self.cfg = cfg
         c_in = 6
-        for name, (c_out, k, s, d) in zip(TRUNK_NAMES, TRUNK):
+        for name, (c_out, k, s, d) in zip(TRUNK_NAMES, trunk, strict=True):
             self.add_module(name, ConvBlock(c_in, c_out, k, s, d, cfg.skip_bn))
             c_in = c_out
         h, w = trunk_out_hw(cfg.img_h, cfg.img_w)
         self.visual_head = nn.Linear(c_in * h * w, cfg.v_f_len)
 
-    def forward(self, img: torch.Tensor) -> torch.Tensor:
+    def forward(self, img: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         B, S, H, W, C = img.shape
         dtype = _dtype(self.cfg)
         pairs = torch.cat([img[:, :-1], img[:, 1:]], dim=-1)
         x = pairs.reshape(B * (S - 1), H, W, 2 * C).to(dtype).permute(0, 3, 1, 2)
+        use_kernels = self.cfg.resolved_use_kernels(x.device)
         for name in TRUNK_NAMES:
-            x = getattr(self, name)(x)
+            x = getattr(self, name)(x, generator, self.cfg.fast_dropout, use_kernels)
         x = x.reshape(B, S - 1, -1)                     # CHW order
         head = self.visual_head
         return F.linear(x, head.weight.to(dtype), head.bias.to(dtype)).float()
@@ -134,7 +164,8 @@ class InertialEncoder(nn.Module):
         self.encoder_conv = nn.Sequential(*layers)
         self.proj = nn.Linear(c_in * (IMU_FREQ + 1), cfg.i_f_len)
 
-    def forward(self, imu: torch.Tensor) -> torch.Tensor:
+    def forward(self, imu: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         B, N, C = imu.shape
         n_win = (N - 1) // IMU_FREQ
         dtype = _dtype(self.cfg)
@@ -147,7 +178,9 @@ class InertialEncoder(nn.Module):
             x = F.conv1d(x, conv.weight.to(dtype), _bias(conv, dtype), padding=1)
             if isinstance(bn, nn.BatchNorm1d):
                 x = _batchnorm_f32(x, bn)
-            x = drop(F.leaky_relu(x.to(dtype), 0.1))
+            x = F.leaky_relu(x.to(dtype), 0.1)
+            if self.training:
+                x = train_dropout(x, drop.p, generator)
         x = x.reshape(B, n_win, -1)                      # C-major (256, 11)
         proj = self.proj
         return F.linear(x, proj.weight.to(dtype), proj.bias.to(dtype)).float()

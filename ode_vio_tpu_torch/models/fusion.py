@@ -1,7 +1,9 @@
 """Visual-inertial fusion gates (counterpart of
 ``ode_vio_tpu/models/fusion.py``): ``cat`` concatenates, ``soft`` scales
 the concatenation by learned elementwise weights, ``hard`` masks it
-per feature with a straight-through Gumbel-softmax sample (tau=1)."""
+per feature with a straight-through Gumbel-softmax sample (tau=1), its
+noise from the generator the forward is given (or one seeded from it on
+the features' device)."""
 
 from __future__ import annotations
 
@@ -9,6 +11,8 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+from ode_vio_tpu_torch.models.common import on_device
 
 
 def gumbel_softmax(logits: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
@@ -45,4 +49,4 @@ class FusionModule(nn.Module):
         if generator is None:
             raise ValueError("hard fusion samples a mask: pass a torch.Generator")
         logits = self.net(feat).reshape(feat.shape + (2,))
-        return feat * gumbel_softmax(logits, generator)[..., 0]
+        return feat * gumbel_softmax(logits, on_device(generator, feat.device))[..., 0]

@@ -1,5 +1,5 @@
-"""PoseODERNN, the flagship ODE-RNN pose core, inference forward
-(counterpart of ``ode_vio_tpu/models/pose_odernn.py``).
+"""PoseODERNN, the flagship ODE-RNN pose core (counterpart of
+``ode_vio_tpu/models/pose_odernn.py``).
 
 Per frame interval, the hidden states of all L layers and B lanes fold
 into one (L*B, F) adaptive solve of dh/dt = MLP(h); the RNN stack then
@@ -7,9 +7,13 @@ takes the fused features. The controller's final step size warm-starts
 the next interval's solve, per row; each window starts from ``dt0``.
 Timestamps are re-based to 0 only when no carried state is given.
 
-The solve runs the fused CUDA kernel (``ops/cuda_kernels.py``) when
-``use_kernels`` resolves on (auto: CUDA tensors), else the solver core
-(``ops/solvers/odeint.py``).
+In eval mode the solve runs the fused CUDA kernel K1
+(``ops/cuda_kernels.py``) when ``use_kernels`` resolves on (auto: CUDA
+tensors), else the solver core (``ops/solvers/odeint.py``). In train mode
+it is always the solver core's bounded, differentiable solve
+(``solve_ivp_batched_dt``, budget ``max_steps_train``), as JAX takes its
+fused kernel only outside training; ``rnn_dropout_out`` then drops RNN
+outputs with a mask from the forward's generator.
 """
 
 from __future__ import annotations
@@ -20,12 +24,13 @@ import torch
 from torch import nn
 
 from ode_vio_tpu_torch.config import ModelConfig, SolverConfig
-from ode_vio_tpu_torch.models.common import MLPField, PoseRegressor, SolveStats
+from ode_vio_tpu_torch.models.common import MLPField, PoseRegressor, SolveStats, train_dropout
 from ode_vio_tpu_torch.models.fusion import FusionModule
 from ode_vio_tpu_torch.ops.cuda_kernels import fused_ode_solve
 from ode_vio_tpu_torch.ops.mlp import ode_func_sizes
 from ode_vio_tpu_torch.ops.rnn_cells import step_stack
-from ode_vio_tpu_torch.ops.solvers.odeint import SolverOptions, solve_ivp_dt
+from ode_vio_tpu_torch.ops.solvers.odeint import (SolverOptions, solve_ivp_batched_dt,
+                                                  solve_ivp_dt)
 
 
 class PoseODERNN(nn.Module):
@@ -37,6 +42,7 @@ class PoseODERNN(nn.Module):
             raise ValueError(f"ode_rnn_type '{cfg.ode_rnn_type}' not supported; "
                              "choose rnn or gru")
         self.cfg = cfg
+        self.solver = solver
         self.opts = SolverOptions.from_config(solver)
         F = cfg.f_len
         self.fuse = FusionModule(F, cfg.fuse_method)
@@ -60,7 +66,8 @@ class PoseODERNN(nn.Module):
         """fv (B, S-1, v_f_len), fi (B, S-1, i_f_len), ts (B, S), prev
         (L, B, F) carried hidden or None. Returns (poses (B, S-1, 6),
         hidden (L, B, F), SolveStats)."""
-        cfg, opts = self.cfg, self.opts
+        cfg = self.cfg
+        opts = SolverOptions.from_config(self.solver, train=True) if self.training else self.opts
         F, L = cfg.f_len, cfg.rnn_num_layers
         B, steps, _ = fv.shape
         fused = self.fuse(fv, fi, generator)
@@ -69,7 +76,7 @@ class PoseODERNN(nn.Module):
         ts_eff = ts - ts[:, :1] if prev is None else ts
 
         layers = self.ode_func.layers()
-        use_kernels = cfg.resolved_use_kernels(fused.device)
+        use_kernels = cfg.resolved_use_kernels(fused.device) and not self.training
         cells = self._cells()
         dt = torch.full((L * B,), opts.dt0, dtype=torch.float32, device=fused.device)
         accepted = torch.zeros((), dtype=torch.int64, device=fused.device)
@@ -86,13 +93,16 @@ class PoseODERNN(nn.Module):
                     dt0=dt, max_steps=opts.max_steps, safety=opts.safety,
                     factor_min=opts.factor_min, factor_max=opts.factor_max)
             else:
-                y1, dt, (acc, rej, inc) = solve_ivp_dt(
-                    self.ode_func, y, t0, t1, opts, dt)
+                solve = solve_ivp_batched_dt if self.training else solve_ivp_dt
+                y1, dt, (acc, rej, inc) = solve(self.ode_func, y, t0, t1, opts, dt)
             accepted += acc.sum()
             rejected += rej.sum()
             incomplete += inc.reshape(L, B).sum(0, dtype=torch.int32)
             out, h = step_stack(cfg.ode_rnn_type, cells, fused[:, k],
                                 y1.reshape(L, B, F))
             outs.append(out)
-        pose = self.regressor(torch.stack(outs, dim=1))
+        outs = torch.stack(outs, dim=1)
+        if self.training:
+            outs = train_dropout(outs, cfg.rnn_dropout_out, generator)
+        pose = self.regressor(outs)
         return pose, h, SolveStats(accepted, rejected, incomplete)

@@ -12,6 +12,12 @@ multi-segment neural-CDE solve of the CDE and RDE cores, for all rows at
 once. Its source is ``ode_vio_tpu_torch/csrc/fused_cde_solve.cu``. Both
 share the adaptive loop in ``csrc/adaptive_rk.cuh``.
 
+Kernel K3, :func:`fused_dropout`, replaces
+``ode_vio_tpu/ops/pallas_kernels.py::pallas_dropout``: dropout whose keep
+mask comes from a keyed Philox4x32-10 generator inside the kernel, so the
+backward pass (:class:`FusedDropout`) regenerates it and no mask is ever
+stored. Its source is ``ode_vio_tpu_torch/csrc/fused_dropout.cu``.
+
 Build: at first use, every ``csrc/*.cu`` is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library of its own with a plain C interface, in
 ``ode_vio_tpu_torch/_build/`` (listed in ``.gitignore``), all ``nvcc``
@@ -45,7 +51,8 @@ from ode_vio_tpu_torch.ops.solvers.tableaus import ButcherTableau, get_tableau
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE_DIR / "csrc"
-SOURCES = {name: CSRC / f"{name}.cu" for name in ("fused_ode_solve", "fused_cde_solve")}
+SOURCES = {name: CSRC / f"{name}.cu"
+           for name in ("fused_ode_solve", "fused_cde_solve", "fused_dropout")}
 HEADER = CSRC / "adaptive_rk.cuh"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -127,11 +134,17 @@ def _bind(libs: Dict[str, ctypes.CDLL]) -> None:
         i, i, i, i, p,          # n_rows, C, T, E, stream
     ]
     fn.restype = ctypes.c_int
+    u32 = ctypes.c_uint32
+    fn = libs["fused_dropout"].fused_dropout_launch
+    fn.argtypes = [p, p, ctypes.c_longlong, i,   # x, y, n, dtype
+                   u32, u32, u32, f, p]          # key low, key high, thresh, scale, stream
+    fn.restype = ctypes.c_int
 
 
 def reset_launch_counts() -> None:
     fused_ode_solve.launches = 0
     fused_cde_solve.launches = 0
+    fused_dropout.launches = 0
 
 
 def _check_method(tab: ButcherTableau, method: str, activation: str) -> None:
@@ -364,3 +377,123 @@ def fused_cde_solve(layers: Sequence[Layer], z0: torch.Tensor, path_ts: torch.Te
 
 
 fused_cde_solve.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3: fused dropout, Philox mask regenerated in the backward pass
+# ---------------------------------------------------------------------------
+
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+_U32 = 0xFFFFFFFF
+_DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}  # csrc/fused_dropout.cu
+
+
+def _mulhilo(m: int, a: torch.Tensor):
+    """The high and low words of the 64-bit product of the 32-bit constant
+    ``m`` and the 32-bit words ``a`` (held in int64), with ``a`` split into
+    16-bit halves so that no partial product leaves int64."""
+    p_lo = m * (a & 0xFFFF)
+    p_hi = m * (a >> 16)
+    mid = p_lo + ((p_hi & 0xFFFF) << 16)
+    return (p_hi >> 16) + (mid >> 32), mid & _U32
+
+
+def philox4x32_10(counter: Sequence[torch.Tensor], key: int):
+    """Philox4x32-10 (Random123's constants) in int64 arithmetic: the four
+    32-bit output words for the counter words ``counter`` (four int64
+    tensors) under the 64-bit ``key``."""
+    c0, c1, c2, c3 = counter
+    k0, k1 = key & _U32, key >> 32 & _U32
+    for r in range(10):
+        if r:
+            k0, k1 = (k0 + _PHILOX_W[0]) & _U32, (k1 + _PHILOX_W[1]) & _U32
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def dropout_constants(rate: float):
+    """The keep threshold on the 32-bit draws (drop iff bits < thresh) and
+    the float32 scale of kept elements, as ``pallas_dropout`` sets them."""
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
+    thresh = min(int(round(rate * 4294967296.0)), 4294967295)
+    return thresh, torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32).item()
+
+
+def fused_dropout_plain(x: torch.Tensor, key: int, rate: float) -> torch.Tensor:
+    """The kernel's function in plain PyTorch, bit for bit: element i keeps
+    its value times the scale, rounded once to ``x``'s type, iff word
+    ``i % 4`` of Philox(counter ``i // 4``, ``key``) >= the threshold."""
+    if rate == 0.0:
+        return x
+    thresh, scale = dropout_constants(rate)
+    n = x.numel()
+    q = torch.arange((n + 3) // 4, dtype=torch.int64, device=x.device)
+    zero = torch.zeros_like(q)
+    words = philox4x32_10((q & _U32, q >> 32, zero, zero), key)
+    keep = torch.stack([w >= thresh for w in words], 1).reshape(-1)[:n].reshape(x.shape)
+    return torch.where(keep, (x.float() * scale).to(x.dtype), torch.zeros((), dtype=x.dtype,
+                                                                          device=x.device))
+
+
+def fused_dropout(x: torch.Tensor, key: int, rate: float) -> torch.Tensor:
+    """Dropout of ``x`` at ``rate`` (in [0, 1)) with the keep mask of the
+    64-bit ``key``; rate 0 returns ``x`` itself. A contiguous float32,
+    bfloat16 or float16 tensor on a CUDA device runs the kernel (anything
+    else there raises); a CPU tensor runs :func:`fused_dropout_plain`."""
+    thresh, scale = dropout_constants(rate)
+    if rate == 0.0:
+        return x
+    if x.device.type == "cpu":
+        return fused_dropout_plain(x, key, rate)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_dropout runs on cuda or cpu, not {x.device}")
+    if x.dtype not in _DTYPE_IDS or not x.is_contiguous():
+        raise ValueError(f"fused_dropout: x must be a contiguous float32, bfloat16 or "
+                         f"float16 tensor, got {x.dtype} (contiguous={x.is_contiguous()})")
+    y = torch.empty_like(x)
+    if x.numel() == 0:
+        return y
+    lib = build()["fused_dropout"]
+    err = lib.fused_dropout_launch(
+        x.data_ptr(), y.data_ptr(), x.numel(), _DTYPE_IDS[x.dtype], key & _U32,
+        key >> 32 & _U32, thresh, scale, torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_dropout kernel launch failed: CUDA error {err}")
+    fused_dropout.launches += 1
+    return y
+
+
+fused_dropout.launches = 0
+
+
+def _in_memory_order(fn, order: Sequence[int], x: torch.Tensor, key: int, rate: float):
+    """``fn`` on ``x`` with its dims permuted to ``order``, where that view
+    is contiguous (else on a contiguous copy of it), permuted back."""
+    inverse = sorted(range(len(order)), key=order.__getitem__)
+    return fn(x.permute(*order).contiguous(), key, rate).permute(*inverse)
+
+
+class FusedDropout(torch.autograd.Function):
+    """Dropout whose backward regenerates the forward's mask from the key:
+    only the key, the rate and a dim order are saved. The mask counts the
+    elements in the input's memory order (the dims from the largest stride
+    to the smallest), so a dense tensor in any layout (cuDNN's
+    channels-last outputs) runs without a copy; the backward puts the
+    gradient in that same order. ``kernel`` False runs the plain version in
+    both directions (the same bits)."""
+
+    @staticmethod
+    def forward(ctx, x, key: int, rate: float, kernel: bool):
+        order = sorted(range(x.dim()), key=lambda d: -x.stride(d))
+        ctx.key, ctx.rate, ctx.kernel, ctx.order = key, rate, kernel, order
+        return _in_memory_order(fused_dropout if kernel else fused_dropout_plain,
+                                order, x, key, rate)
+
+    @staticmethod
+    def backward(ctx, g):
+        fn = fused_dropout if ctx.kernel else fused_dropout_plain
+        return _in_memory_order(fn, ctx.order, g, ctx.key, ctx.rate), None, None, None

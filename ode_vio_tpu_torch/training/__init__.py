@@ -1,1 +1,1 @@
-"""Inference callables (training is not ported yet)."""
+"""The training step and the inference callables."""

@@ -1,18 +1,209 @@
-"""Streaming-eval inference callable (counterpart of
-``ode_vio_tpu/training/loop.py::make_infer_fn``). The training half of
-the JAX module is not ported yet."""
+"""The training step, its optimiser and schedule, and the streaming-eval
+inference callable (counterpart of ``ode_vio_tpu/training/loop.py``).
+
+Training: ``loss = angle_loss_weight * MSE(rotation) + MSE(translation)``
+over a window's poses; per param group ("train", and "regressor" when
+``lr_regressor`` is set; the frozen image encoder in none) the gradients
+are clipped by the group's global norm, weight decay is added to them and
+Adam (or SGD with momentum 0.9) steps, as the JAX package's optax chain
+does; ``grad_accumulation_steps`` averages that many steps' gradients
+before one update (``optax.MultiSteps``). With ``freeze_encoder`` the
+image encoder runs under ``torch.no_grad()`` in train mode (batch
+statistics, trunk dropout through kernel K3), so autograd records none of
+it; with ``frozen_encoder_eval`` on top it runs its BatchNorm-folded
+inference graph instead. Every random draw of a step (one key per trunk
+dropout site, the Bernoulli masks, hard fusion's noise) comes from the
+train state's ``torch.Generator``.
+
+Not ported yet (ROADMAP.md, Queue 1 item 5): the carried step
+(``carry=True``), ``make_streaming_train_step``, checkpointing, and
+training the cde/rde cores.
+"""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ode_vio_tpu_torch.config import resolve_device
+from ode_vio_tpu_torch.config import Config, resolve_device
 from ode_vio_tpu_torch.models.deepvio import DeepVIO
+from ode_vio_tpu_torch.models.encoders import ImageEncoder
 from ode_vio_tpu_torch.models.fold import fold_batchnorm_into_bias
+
+
+def lr_for_epoch(cfg: Config, epoch: int) -> float:
+    """The step schedule of the learning rate: warmup, joint, fine."""
+    t = cfg.train
+    if epoch < t.epochs_warmup:
+        return t.lr_warmup
+    if epoch < t.epochs_warmup + t.epochs_joint:
+        return t.lr_joint
+    return t.lr_fine
+
+
+def param_group(name: str, freeze_encoder: bool, split_regressor: bool) -> str:
+    """The group of the parameter ``name`` (a ``named_parameters`` name):
+    "frozen" (the image encoder under ``freeze_encoder``), "regressor"
+    (the pose regressor when it has a learning rate of its own) or
+    "train"."""
+    parts = name.split(".")
+    if freeze_encoder and parts[0] == "Image_net":
+        return "frozen"
+    if split_regressor and "regressor" in parts:
+        return "regressor"
+    return "train"
+
+
+def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every element of ``tensors``."""
+    return torch.sqrt(sum(torch.sum(g * g) for g in tensors))
+
+
+class Optimizer:
+    """The counterpart of the JAX package's ``make_optimizer(cfg)``, built
+    as ``Optimizer(model, cfg)``: a ``torch.optim`` Adam (b1 0.9,
+    b2 0.999, eps 1e-8) or SGD (momentum 0.9) over named param groups, with
+    ``weight_decay`` added to the gradients; :meth:`step` clips each
+    group's gradients by that group's global norm first, and averages them
+    over ``grad_accumulation_steps`` calls before one update."""
+
+    def __init__(self, model: torch.nn.Module, cfg: Config):
+        t = cfg.train
+        groups: Dict[str, List[torch.nn.Parameter]] = {}
+        for name, p in model.named_parameters():
+            g = param_group(name, t.freeze_encoder, t.lr_regressor is not None)
+            if g != "frozen":
+                groups.setdefault(g, []).append(p)
+        lrs = {"train": t.lr_warmup, "regressor": t.lr_regressor}
+        param_groups = [{"params": ps, "lr": lrs[g], "name": g} for g, ps in groups.items()]
+        if t.optimizer.lower() == "sgd":
+            self.inner = torch.optim.SGD(param_groups, lr=t.lr_warmup, momentum=0.9,
+                                         weight_decay=t.weight_decay)
+        else:
+            self.inner = torch.optim.Adam(param_groups, lr=t.lr_warmup, betas=(0.9, 0.999),
+                                          eps=1e-8, weight_decay=t.weight_decay)
+        self.params: List[torch.nn.Parameter] = [p for g in self.inner.param_groups
+                                                 for p in g["params"]]
+        self.max_norm = t.gradient_clip
+        self.every = t.grad_accumulation_steps
+        self.mini_step = 0
+        self._mean: Optional[List[torch.Tensor]] = None
+
+    def step(self, grads: Sequence[torch.Tensor]) -> None:
+        """One call per train step, with the gradients of :attr:`params`.
+        Under accumulation the params change on every ``every``-th call
+        only, by the mean of the gradients since the last update."""
+        if self.every > 1:
+            n = self.mini_step
+            if self._mean is None:
+                self._mean = [torch.zeros_like(g) for g in grads]
+            for m, g in zip(self._mean, grads):
+                m.add_((g - m) / (n + 1))
+            self.mini_step = (n + 1) % self.every
+            if self.mini_step:
+                return
+            grads, self._mean = self._mean, None
+        i = 0
+        for group in self.inner.param_groups:
+            ps = group["params"]
+            gs = grads[i:i + len(ps)]
+            i += len(ps)
+            norm = global_norm(gs)
+            within = norm < self.max_norm  # optax: clip only at or above the limit
+            for p, g in zip(ps, gs):
+                p.grad = torch.where(within, g, g / norm * self.max_norm)
+        self.inner.step()
+        for p in self.params:
+            p.grad = None
+
+
+def set_learning_rate(optimizer: Optimizer, lr: float, group: str = "train") -> Optimizer:
+    """Set one param group's learning rate (the epoch schedule sets the
+    "train" group's only); a group the optimizer lacks is a KeyError."""
+    names = [g["name"] for g in optimizer.inner.param_groups]
+    if group not in names:
+        raise KeyError(f"param group '{group}' not in optimizer (have {sorted(names)})")
+    optimizer.inner.param_groups[names.index(group)]["lr"] = lr
+    return optimizer
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The model (in train mode, on its device), its optimizer, the steps
+    taken, and the CPU generator every random draw of a step comes from
+    (each K3 dropout call takes one 64-bit key of it)."""
+
+    model: DeepVIO
+    optimizer: Optimizer
+    generator: torch.Generator
+    step: int = 0
+
+
+def create_train_state(cfg: Config, model: DeepVIO, *, seed: Optional[int] = None,
+                       device="cuda") -> TrainState:
+    """Move ``model`` to ``device`` in train mode and build its optimizer
+    and a generator seeded with ``seed`` (default ``cfg.train.seed``)."""
+    device = resolve_device(device)
+    model = model.to(device).train()
+    gen = torch.Generator().manual_seed(cfg.train.seed if seed is None else seed)
+    return TrainState(model, Optimizer(model, cfg), gen)
+
+
+def make_train_step(cfg: Config, *, device="cuda") -> Callable:
+    """Build ``train_step(state, img, imu, gts, ts) -> (state, metrics)``:
+    one forward, backward and optimizer update of ``state`` in place, on
+    ``device``. Inputs in the JAX package's layout (numpy or tensors): img
+    (B, S, H, W, 3), imu (B, 10*(S-1)+1, 6), gts (B, S-1, 6), ts (B, S).
+    ``metrics`` holds device tensors: ``loss``, ``angle_loss``,
+    ``trans_loss``, ``grad_norm`` (of this step's unclipped gradients) and
+    ``solver_incomplete`` (solves that ran out of ``max_steps_train``).
+    Beyond the solver's early-exit checks nothing waits for the device."""
+    device = resolve_device(device)
+    if cfg.model.model_type != "ode-rnn":
+        raise NotImplementedError(
+            f"training the '{cfg.model.model_type}' pose core is not ported yet "
+            "(ROADMAP.md, Queue 1 item 5)")
+    t = cfg.train
+    frozen_eval = t.freeze_encoder and t.frozen_encoder_eval and not cfg.model.skip_bn
+    if frozen_eval:
+        with torch.device("meta"):
+            eval_image_net = ImageEncoder(dataclasses.replace(cfg.model, skip_bn=True))
+        eval_image_net = eval_image_net.to_empty(device=device).eval()
+
+    def train_step(state: TrainState, img, imu, gts, ts) -> Tuple[TrainState, Dict]:
+        model, gen = state.model, state.generator
+        img, imu, gts, ts = (torch.as_tensor(a, dtype=torch.float32, device=device)
+                             for a in (img, imu, gts, ts))
+        if frozen_eval:
+            # the frozen encoder's inference graph, folded from its current
+            # statistics, which it then leaves unchanged
+            with torch.no_grad():
+                eval_image_net.load_state_dict(
+                    fold_batchnorm_into_bias(model.Image_net.state_dict()))
+                fv = eval_image_net(img)
+        elif t.freeze_encoder:
+            with torch.no_grad():
+                fv = model.Image_net(img, gen)
+        else:
+            fv = model.Image_net(img, gen)
+        poses, _, stats = model.pose_from_visual(fv, imu, ts, generator=gen)
+        angle = torch.mean((poses[..., :3] - gts[..., :3]) ** 2)
+        trans = torch.mean((poses[..., 3:] - gts[..., 3:]) ** 2)
+        loss = t.angle_loss_weight * angle + trans
+        params = state.optimizer.params
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        grad_norm = global_norm(grads)
+        state.optimizer.step(grads)
+        state.step += 1
+        return state, {"loss": loss.detach(), "angle_loss": angle.detach(),
+                       "trans_loss": trans.detach(), "grad_norm": grad_norm,
+                       "solver_incomplete": stats.incomplete.sum()}
+
+    return train_step
 
 
 def make_infer_fn(model: DeepVIO, state_dict: Optional[Dict[str, torch.Tensor]] = None,

@@ -1,11 +1,12 @@
-"""Kernels K1 (fused_ode_solve) and K2 (fused_cde_solve) against their
-plain PyTorch versions on the card. These tests need a CUDA device and
+"""Kernels K1 (fused_ode_solve), K2 (fused_cde_solve) and K3
+(fused_dropout) against their plain PyTorch versions on the card. These tests need a CUDA device and
 skip without one; this file imports no JAX, so on the GPU machine they run
 from the repository's root with
 
     python -m pytest --noconftest -m gpu tests/test_torch_port_gpu.py
 
-K2's cases are chip_smoke.py's CDE_CASES, checked by its check_cde_case."""
+K2's cases are chip_smoke.py's CDE_CASES, checked by its check_cde_case;
+K3's are its DROPOUT_CASES, checked by check_dropout_case."""
 
 import numpy as np
 import pytest
@@ -97,3 +98,41 @@ def test_k2_matches_plain_on_gpu(index, name):
     out = chip_smoke.check_cde_case(case, torch.device("cuda"), chip_smoke.SEED + index)
     assert cuda_kernels.fused_cde_solve.launches == before + 1
     assert out["max_abs_err"] <= out["zs_atol"]
+
+
+DROPOUT_CASE_NAMES = tuple(f"{n}_b2" for n in ("conv1", "conv2", "conv3", "conv3_1", "conv4",
+                                               "conv4_1", "conv5", "conv5_1", "conv6")) + (
+    "odd_f32_r0.2", "odd_f32_r0.5", "odd_f32_r0.999", "unaligned_bf16")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("index,name,channels_last",
+                         [(i, n, False) for i, n in enumerate(DROPOUT_CASE_NAMES)]
+                         + [(i, n, True) for i, n in enumerate(DROPOUT_CASE_NAMES[:9])])
+def test_k3_matches_plain_on_gpu(index, name, channels_last):
+    """Forward and backward equal to the plain version bit for bit, one
+    launch each way, the keep fraction within 4 sigma; the trunk's shapes
+    also channels-last, as cuDNN gives them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    import chip_smoke
+
+    case = chip_smoke.DROPOUT_CASES[index]
+    assert case[0] == name
+    out = chip_smoke.check_dropout_case(case, torch.device("cuda"), chip_smoke.SEED + index,
+                                        channels_last=channels_last)
+    assert abs(out["keep_sigmas"]) < 4
+
+
+@pytest.mark.gpu
+def test_k3_refuses_what_it_cannot_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    x = torch.ones(8, 8, device="cuda")
+    before = cuda_kernels.fused_dropout.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_kernels.fused_dropout(x.t(), 1, 0.5)
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+        cuda_kernels.fused_dropout(x.double(), 1, 0.5)
+    assert cuda_kernels.fused_dropout(x, 1, 0.0) is x
+    assert cuda_kernels.fused_dropout.launches == before

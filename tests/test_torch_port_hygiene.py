@@ -41,7 +41,8 @@ def test_entry_points_default_to_cuda_and_do_not_fall_back():
     from ode_vio_tpu_torch.config import Config, ModelConfig
     from ode_vio_tpu_torch.models.deepvio import create_model
     from ode_vio_tpu_torch.serving import StreamingEngine
-    from ode_vio_tpu_torch.training.loop import make_infer_fn
+    from ode_vio_tpu_torch.training.loop import (create_train_state, make_infer_fn,
+                                                 make_train_step)
 
     cfg = Config(model=ModelConfig(img_h=64, img_w=128, seq_len=3, v_f_len=32,
                                    i_f_len=16, ode_hidden_dim=16,
@@ -53,6 +54,10 @@ def test_entry_points_default_to_cuda_and_do_not_fall_back():
         StreamingEngine(model, max_sessions=2)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make_infer_fn(model)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_train_step(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        create_train_state(cfg, model)
 
 
 def test_kernel_wrapper_raises_off_cuda_and_cpu():
@@ -63,6 +68,13 @@ def test_kernel_wrapper_raises_off_cuda_and_cpu():
     layers = [(torch.zeros(4, 4, device="meta"), torch.zeros(4, device="meta"))]
     with pytest.raises(ValueError, match="runs on cuda or cpu"):
         fused_ode_solve(layers, y, t, t)
+
+
+def test_k3_wrapper_raises_off_cuda_and_cpu():
+    from ode_vio_tpu_torch.ops.cuda_kernels import fused_dropout
+
+    with pytest.raises(ValueError, match="runs on cuda or cpu"):
+        fused_dropout(torch.zeros(8, device="meta"), 1, 0.5)
 
 
 def test_k2_wrapper_raises_off_cuda_and_cpu():
