@@ -9,10 +9,15 @@ Phases, one line each, any failure ends the run with a non-zero exit:
           started together
   kernel  K1 fused_ode_solve against its plain PyTorch version at the
           flagship field (softplus 768->1024->1024->768, dopri5, rtol 1e-2,
-          atol 1e-6, max_steps 64): N = 3*4 rows, ragged N = 5, zero-length
-          rows, per-row dt0, cases that force rejected steps and exhaust
-          max_steps; y1, dt_final and the per-row counts compared; times
-          with CUDA events
+          atol 1e-6, max_steps 64): N = 3*4 rows, ragged N = 5, 1 row, 96
+          rows (32 sessions), 800 rows (more than one launch takes: the
+          wrapper splits them into two launches), zero-length rows, per-row
+          dt0, cases that force rejected steps and exhaust max_steps, and a
+          field of twice the widths, too wide for the blocks' shared memory
+          (the streamed path); y1, dt_final and the per-row counts compared. Each launch's grid
+          (one block per SM, no cluster), resident bytes per block, barriers,
+          lockstep steps and field evaluations are printed; times with CUDA
+          events, and the time per barrier
   slice   the flagship DeepVIO (seeded init) behind
           StreamingEngine(max_sessions=4, fold_bn=True): sessions opening
           at different windows, one idle for a window; K1 must launch once
@@ -24,12 +29,15 @@ Phases, one line each, any failure ends the run with a non-zero exit:
           linear and cubic paths, repeated leading knots, the history
           path's own shapes (64 knots with 54 and 24 collapsed; the
           11-knot advance, collapsed and full), evaluation times off the
-          knots (the rde field, C 45), a ragged row count, forced
-          rejections, a starved budget. Each case takes the first seeded
+          knots (the rde field, C 45), a ragged row count, 1 and 32 rows,
+          forced rejections, a starved budget. Each case takes the first seeded
           draw whose step counts rounding does not decide (the plain
           version in float64 and with z0 moved by 2^-21 take the same
           steps); per-row counts must be equal, the case's branch reached,
-          zs within 4x the rounding's reach. Then the main path's input
+          zs within 4x the rounding's reach; the kernel's and the plain
+          float32 version's distances to the float64 run are printed. The
+          1-row case's row must keep its bits run to run and inside a
+          4-row launch. Then the main path's input
           (its shape and solver settings, whose step counts rounding
           decides, so zs are not compared there) is timed with CUDA events
           next to the plain version
@@ -165,14 +173,15 @@ def bound(evals: int, n_params: int, nbytes: int) -> dict:
             "bound_by": "operations" if b["flops_ms"] >= b["bytes_ms"] else "bytes"}
 
 
-def field_problem(n: int, zero_rows, gen: torch.Generator, dev, gain: float = 1.0):
-    """The flagship ODE field (its weights times ``gain``) and one frame
-    interval per row."""
+def field_problem(n: int, zero_rows, gen: torch.Generator, dev, gain: float = 1.0,
+                  width: int = 1):
+    """The flagship ODE field (its weights times ``gain``, its widths times
+    ``width``) and one frame interval per row."""
     m = flagship_config().model
-    sizes = ode_func_sizes(m.f_len, m.ode_hidden_dim, m.ode_fn_num_layers)
+    sizes = ode_func_sizes(width * m.f_len, width * m.ode_hidden_dim, m.ode_fn_num_layers)
     layers = [((gain * w).to(dev), (b + 0.01 * torch.randn(b.shape, generator=gen)).to(dev))
               for w, b in init_mlp(sizes, gen)]
-    y0 = torch.tanh(torch.randn(n, m.f_len, generator=gen)).to(dev)
+    y0 = torch.tanh(torch.randn(n, width * m.f_len, generator=gen)).to(dev)
     t0 = (torch.rand(n, generator=gen) * 0.5).to(dev)
     t1 = t0 + (0.08 + 0.05 * torch.rand(n, generator=gen)).to(dev)
     t1[list(zero_rows)] = t0[list(zero_rows)]
@@ -181,20 +190,47 @@ def field_problem(n: int, zero_rows, gen: torch.Generator, dev, gain: float = 1.
 
 
 # (name, rows, zero-length rows, weight gain, dt0 override, solver overrides,
-#  branches the case must reach). The flagship field at its own settings
-# never rejects a step, so two cases steepen it (weights x3), start from
-# dt0 = 0.1 and tighten rtol to force rejections; two starve the budget.
-# A steeper field amplifies the summation-order differences, so the gain
-# stays where y still agrees to 1e-4.
+#  branches the case must reach, widths x). The flagship field at its own
+# settings never rejects a step, so two cases steepen it (weights x3), start
+# from dt0 = 0.1 and tighten rtol to force rejections; two starve the
+# budget. A steeper field amplifies the summation-order differences, so the
+# gain stays where y still agrees to 1e-4. 96 rows are 32 sessions' 3 RNN
+# layers (the layers' inputs staged in row chunks); 800 rows are more than
+# one launch takes (778 on an H100: every block keeps every row's state),
+# so the wrapper makes two launches of 400 ("split"); the field at twice
+# the widths (42 MB) does not fit in the blocks' shared memory and is read
+# from global memory ("streamed").
 KERNEL_CASES = (
-    ("n12_zero_rows", 12, (3, 7), 1.0, None, {}, ()),
-    ("n5_ragged", 5, (2,), 1.0, None, {}, ()),
-    ("n12_rejects", 12, (), 3.0, 0.1, {"rtol": 1e-4, "atol": 1e-7}, ("rejected",)),
+    ("n12_zero_rows", 12, (3, 7), 1.0, None, {}, (), 1),
+    ("n5_ragged", 5, (2,), 1.0, None, {}, (), 1),
+    ("n12_rejects", 12, (), 3.0, 0.1, {"rtol": 1e-4, "atol": 1e-7}, ("rejected",), 1),
     ("n12_budget_rejects", 12, (5,), 3.0, 0.1, {"rtol": 1e-4, "atol": 1e-7, "max_steps": 3},
-     ("rejected", "incomplete")),
-    ("n12_max_steps_1", 12, (0,), 1.0, 1e-4, {"max_steps": 1}, ("incomplete",)),
-    ("n12_main", 12, (), 1.0, None, {}, ()),   # the main path's shape, timed below
+     ("rejected", "incomplete"), 1),
+    ("n12_max_steps_1", 12, (0,), 1.0, 1e-4, {"max_steps": 1}, ("incomplete",), 1),
+    ("n1", 1, (), 1.0, None, {}, (), 1),
+    ("n96", 96, (4, 50), 1.0, None, {}, (), 1),
+    ("n800_split", 800, (4, 500), 1.0, None, {}, ("split",), 1),
+    ("wide_streamed", 12, (1,), 1.0, None, {}, ("streamed",), 2),
+    ("n12_main", 12, (), 1.0, None, {}, (), 1),   # the main path's shape, timed below
 )
+
+
+def grid_launch(wrapper, sms: int) -> dict:
+    """The grid of ``wrapper``'s latest launch and what it did: one block
+    per SM, every block through every barrier (the barrier's arrival
+    counter at blocks x barriers; none where no row had an interval to
+    integrate)."""
+    plan, work = wrapper.last
+    arrivals, barriers, steps, evals = work.tolist()
+    if plan.n_blocks != sms:
+        raise AssertionError(f"{plan.n_blocks} blocks for {sms} SMs")
+    if arrivals != barriers * plan.n_blocks:
+        raise AssertionError(f"barrier arrivals {arrivals} for {barriers} barriers of "
+                             f"{plan.n_blocks} blocks")
+    return {"grid": [plan.n_blocks, 1, 1], "cluster": [1, 1, 1], "threads": 512,
+            "resident": plan.resident, "resident_bytes_per_block": plan.resident_bytes,
+            "smem_bytes_per_block": plan.smem_bytes, "row_chunk": plan.row_chunk,
+            "barriers": barriers, "lockstep_steps": steps, "field_evals": evals}
 
 
 def kernel_check(dev) -> dict:
@@ -204,13 +240,21 @@ def kernel_check(dev) -> dict:
                 max_steps=s.max_steps, safety=s.safety, factor_min=s.factor_min,
                 factor_max=s.factor_max)
     gen = torch.Generator().manual_seed(SEED)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     max_err, max_dt_rel, cases = 0.0, 0.0, {}
-    for name, n, zero, gain, dt0_all, over, must_reach in KERNEL_CASES:
-        layers, y0, t0, t1, dt0 = field_problem(n, zero, gen, dev, gain)
+    for name, n, zero, gain, dt0_all, over, must_reach, width in KERNEL_CASES:
+        layers, y0, t0, t1, dt0 = field_problem(n, zero, gen, dev, gain, width)
         if dt0_all is not None:
             dt0 = torch.full_like(dt0, dt0_all)
         kw = dict(base, **over)
+        n0 = cuda_kernels.fused_ode_solve.launches
         out = cuda_kernels.fused_ode_solve(layers, y0, t0, t1, dt0=dt0, **kw)
+        launch = grid_launch(cuda_kernels.fused_ode_solve, sms)
+        launch["launches"] = cuda_kernels.fused_ode_solve.launches - n0
+        if launch["resident"] == ("streamed" in must_reach):
+            raise AssertionError(f"{name}: resident={launch['resident']}")
+        if (launch["launches"] > 1) != ("split" in must_reach):
+            raise AssertionError(f"{name}: {launch['launches']} launches for {n} rows")
         ref = cuda_kernels.fused_ode_solve_plain(layers, y0, t0, t1, dt0, **kw)
         torch.cuda.synchronize()
         # f32 dot products summed in another order than cuBLAS's
@@ -233,17 +277,19 @@ def kernel_check(dev) -> dict:
                                      f"{out[k].tolist()} vs {ref[k].tolist()}")
             counts[what] = out[k].tolist()
         for what in must_reach:
-            if sum(counts[what]) == 0:
+            if what in counts and sum(counts[what]) == 0:
                 raise AssertionError(f"{name}: no row reached the {what} branch")
         if not torch.isfinite(out[0]).all():
             raise AssertionError(f"{name}: non-finite y1")
         max_err = max(max_err, float((out[0] - ref[0]).abs().max()))
         if inc.any():
             max_dt_rel = max(max_dt_rel, float(((out[1] - ref[1]).abs() / ref[1])[inc].max()))
-        cases[name] = counts
+        cases[name] = dict(counts if n <= 12 else {k: sum(v) for k, v in counts.items()},
+                           **launch)
 
     # time the main path's shape: 3 layers x 4 lanes, every row active
     ms = cuda_ms(lambda: cuda_kernels.fused_ode_solve(layers, y0, t0, t1, dt0=dt0, **kw))
+    launch = grid_launch(cuda_kernels.fused_ode_solve, sms)
     plain_ms = cuda_ms(lambda: cuda_kernels.fused_ode_solve_plain(
         layers, y0, t0, t1, dt0, **kw), runs=20)
     # bound: each input byte read once, each output byte written once; the
@@ -257,9 +303,11 @@ def kernel_check(dev) -> dict:
     nbytes = 4 * (sum(w.numel() + b.numel() for w, b in layers) + y0.numel() * 2 + n * 3 + n * 4)
     bd = bound(evals, n_params, nbytes)
     phase("kernel", name="fused_ode_solve", cases=cases, max_abs_err=max_err,
-          max_dt_final_rel_err_incomplete_rows=max_dt_rel, ms=ms, plain_ms=plain_ms, **bd)
+          max_dt_final_rel_err_incomplete_rows=max_dt_rel, ms=ms, plain_ms=plain_ms,
+          main=launch, us_per_barrier=1e3 * ms / launch["barriers"], **bd)
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"]}
+            "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
+            "barriers": launch["barriers"], "lockstep_steps": launch["lockstep_steps"]}
 
 
 def cde_config():
@@ -348,6 +396,9 @@ CDE_CASES = (
      {"rtol": 1e-3}, ("zero_length",)),
     ("advance_full", 4, 11, 129, "linear", 0, 0, ("drift", 0.1, 0.003), None,
      {"rtol": 1e-3}, ("rejected",)),
+    ("n1", 1, 10, 129, "linear", 0, 0, ("random", 0.03, 0.0), None, {"rtol": 1e-2}, ()),
+    ("n32", 32, 10, 129, "linear", 0, 0, ("random", 0.03, 0.0), None, {"rtol": 1e-2},
+     ("rejected",)),
 )
 # the main path's shape and settings (cde solver, a new N(0, 1) slope at
 # every knot, ~190 accepted steps per row as in a served window): timed
@@ -357,19 +408,19 @@ MAX_DRAWS = 6  # draws per case until one is not decided by rounding
 
 def not_decided_by_rounding(layers, args, kw, ref):
     """Whether the plain version takes the same per-row steps in float64
-    and with z0 moved by 2^-21 as ``ref`` (its float32 run) does; and the
-    larger of the two runs' distances to ``ref``'s zs. Where it does not,
-    the controller's proposals after steps whose error ratio sits at the
-    rounding's level (the ramp-up from dt0, landings on a knot) decide the
-    step sequence, and two correct float32 implementations part at the
-    solver's tolerance."""
+    and with z0 moved by 2^-21 as ``ref`` (its float32 run) does; the
+    larger of those two runs' distances to ``ref``'s zs; and the float64
+    run's zs. Where it does not, the controller's proposals after steps
+    whose error ratio sits at the rounding's level (the ramp-up from dt0,
+    landings on a knot) decide the step sequence, and two correct float32
+    implementations part at the solver's tolerance."""
     f64 = [(w.double(), b.double()) for w, b in layers]
     runs = (cuda_kernels.fused_cde_solve_plain(
                 f64, *[None if a is None else a.double() for a in args], **kw),
             cuda_kernels.fused_cde_solve_plain(
                 layers, args[0] * (1 + 2.0 ** -21), *args[1:], **kw))
     same = all(torch.equal(r[k], ref[k]) for r in runs for k in (2, 3, 4))
-    return same, max(float((r[0] - ref[0]).abs().max()) for r in runs)
+    return same, max(float((r[0] - ref[0]).abs().max()) for r in runs), runs[0][0]
 
 
 def cde_solver_kw() -> dict:
@@ -384,7 +435,8 @@ def check_cde_case(case, dev, seed: int) -> dict:
     counts are not decided by rounding, through K2 and its plain version.
     Counts equal per row, the case's branches reached, zs within 4x the
     rounding's reach (at least 1e-5), dt_final equal where every segment
-    ran out of budget. Returns the counts and errors."""
+    ran out of budget; a single row keeps its bits run to run and inside
+    a 4-row launch. Returns the counts, the errors and the launches."""
     name, n, T, C, kind, repeat, frames, feat, dt0, over, must_reach = case
     kw = dict(cde_solver_kw(), **over, **({} if dt0 is None else {"dt0": dt0}))
     gen = torch.Generator().manual_seed(seed)
@@ -392,19 +444,36 @@ def check_cde_case(case, dev, seed: int) -> dict:
         layers, args = cde_problem(n, T, C, gen, dev, kind=kind, repeat=repeat,
                                    eval_frames=frames, features=feat)
         ref = cuda_kernels.fused_cde_solve_plain(layers, *args, **kw)
-        well, gap = not_decided_by_rounding(layers, args, kw, ref)
+        well, gap, zs64 = not_decided_by_rounding(layers, args, kw, ref)
         if well:
             break
     else:
         raise AssertionError(f"{name}: every draw's step counts are decided by rounding")
+    n0 = cuda_kernels.fused_cde_solve.launches
     out = cuda_kernels.fused_cde_solve(layers, *args, **kw)
+    launch = grid_launch(cuda_kernels.fused_cde_solve,
+                         torch.cuda.get_device_properties(dev).multi_processor_count)
+    if not launch["resident"]:
+        raise AssertionError(f"{name}: the cde field is not resident")
+    if n == 1:
+        # no row's arithmetic reads another's: the row's bits are the same
+        # in another launch and as row 0 of a launch with 3 more rows
+        _, more = cde_problem(3, T, C, gen, dev, kind=kind, repeat=repeat,
+                              eval_frames=frames, features=feat)
+        among = cuda_kernels.fused_cde_solve(
+            layers, *[None if a is None else torch.cat([a, b]) for a, b in zip(args, more)], **kw)
+        again = cuda_kernels.fused_cde_solve(layers, *args, **kw)
+        if not all(torch.equal(o, a) and torch.equal(o, m[:1])
+                   for o, a, m in zip(out, again, among)):
+            raise AssertionError(f"{name}: the row's bits differ between launches")
+    launches = cuda_kernels.fused_cde_solve.launches - n0
     torch.cuda.synchronize()
     counts = {}
     for k, what in ((2, "accepted"), (3, "rejected"), (4, "incomplete")):
         if not torch.equal(out[k], ref[k]):
             raise AssertionError(f"{name}: per-row {what} differ: "
                                  f"{out[k].tolist()} vs {ref[k].tolist()}")
-        counts[what] = out[k].tolist()
+        counts[what] = out[k].tolist() if n <= 12 else int(out[k].sum())
     z0, ts, ev = args[0], args[1], args[5]
     counts["zero_length"] = int((ev[:, 1:] == ev[:, :-1]).sum() + (ev[:, 0] == ts[:, 0]).sum())
     for what in must_reach:
@@ -425,7 +494,11 @@ def check_cde_case(case, dev, seed: int) -> dict:
     # of 2 times dt0); after a landing on a knot it is rounding noise
     if "max_steps" in over and not torch.equal(out[1], ref[1]):
         raise AssertionError(f"{name}: dt_final differs: {out[1].tolist()} vs {ref[1].tolist()}")
-    return dict(counts, draw=draw, max_abs_err=err, zs_atol=atol)
+    # how far each float32 version lies from the float64 run
+    to64 = {"kernel_to_f64": float((out[0].double() - zs64).abs().max()),
+            "plain_to_f64": float((ref[0].double() - zs64).abs().max())}
+    return dict(counts, draw=draw, max_abs_err=err, zs_atol=atol, **to64, **launch,
+                launches=launches)
 
 
 def kernel_cde_check(dev) -> dict:
@@ -440,6 +513,8 @@ def kernel_cde_check(dev) -> dict:
     layers, args = cde_problem(*MAIN_PATH_INPUT[:3], gen, dev, kind=MAIN_PATH_INPUT[3],
                                features=MAIN_PATH_INPUT[6])
     out = cuda_kernels.fused_cde_solve(layers, *args, **base)
+    launch = grid_launch(cuda_kernels.fused_cde_solve,
+                         torch.cuda.get_device_properties(dev).multi_processor_count)
     ref = cuda_kernels.fused_cde_solve_plain(layers, *args, **base)
     if not torch.isfinite(out[0]).all():
         raise AssertionError("main path input: non-finite zs")
@@ -451,9 +526,11 @@ def kernel_cde_check(dev) -> dict:
                      rejected=out[3].tolist(), rejected_plain=ref[3].tolist(),
                      zs_finite=True)
     phase("kernel_cde", name="fused_cde_solve", cases=cases, max_abs_err=max_err,
-          main_path_input=main_path, ms=ms, plain_ms=plain_ms, **bd)
+          main_path_input=main_path, ms=ms, plain_ms=plain_ms, main=launch,
+          us_per_barrier=1e3 * ms / launch["barriers"], **bd)
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"]}
+            "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
+            "barriers": launch["barriers"], "lockstep_steps": launch["lockstep_steps"]}
 
 
 def cde_bound(layers, args, out) -> dict:

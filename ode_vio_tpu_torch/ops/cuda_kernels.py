@@ -10,7 +10,16 @@ Kernel K2, :func:`fused_cde_solve`, replaces
 ``ode_vio_tpu/ops/pallas_kernels.py::fused_cde_solve``: the whole
 multi-segment neural-CDE solve of the CDE and RDE cores, for all rows at
 once. Its source is ``ode_vio_tpu_torch/csrc/fused_cde_solve.cu``. Both
-share the adaptive loop in ``csrc/adaptive_rk.cuh``.
+share the adaptive loop in ``csrc/adaptive_rk.cuh``: one persistent
+cooperative grid of one block per SM that holds the field's weights in
+the blocks' shared memory and steps every row together under grid
+barriers. The split of the field over the blocks is planned here
+(:func:`ode_grid_plan`, :func:`cde_grid_plan`) and passed to the kernel as
+an int array. The plan keeps every row's controller state in every
+block's shared memory, so one launch takes at most :func:`max_grid_rows`
+rows (778 at the flagship ODE field on an H100, 2,498 at the flagship cde
+field); the wrappers split more rows into launches of at most that
+many, which gives the same bits, since no row's arithmetic reads another's.
 
 Kernel K3, :func:`fused_dropout`, replaces
 ``ode_vio_tpu/ops/pallas_kernels.py::pallas_dropout``: dropout whose keep
@@ -35,12 +44,14 @@ which adds one per kernel launch and nowhere else.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -60,7 +71,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # must match csrc/adaptive_rk.cuh
 _MAX_STAGES = 8
+_MAX_LAYERS = 8
 _ACT_IDS = {"tanh": 0, "relu": 1, "leaky_relu": 2, "softplus": 3}
+# the plan's header words, in the order of csrc/adaptive_rk.cuh's PlanWord
+PLAN_WORDS = ("n_blocks", "n_rows", "resident", "row_chunk", "smem_bytes", "own_max",
+              "off_x", "off_g", "off_dx", "off_state", "off_rows",
+              *(f"off_w{l}" for l in range(_MAX_LAYERS)), "scr_xin", "scr_partial",
+              *(f"scr_h{l}" for l in range(_MAX_LAYERS)), "scr_floats")
+_ROW_WORDS = 13  # per-row controller arrays (csrc/adaptive_rk.cuh::Rows)
+_STATIC_SMEM = 1_024  # left for the kernels' static shared memory
 
 _libs: Optional[Dict[str, ctypes.CDLL]] = None
 build_output: Dict[str, str] = {}  # nvcc/ptxas output of this process's builds, by kernel
@@ -118,12 +137,13 @@ def _bind(libs: Dict[str, ctypes.CDLL]) -> None:
         p, p, p, p, i, i, f,    # tableau a, b_sol, b_err, c (host), stages, fsal, expo
         f, f, f, f, f, i,       # rtol, atol, safety, factor_min, factor_max, max_steps
     ]
+    grid = [p, i, i, p, p, p]   # plan, n_blocks, smem bytes, scratch, work, stream
     fn = libs["fused_ode_solve"].fused_ode_solve_launch
     fn.argtypes = [
         p, p, p, p,             # y0, t0, t1, dt0
         *field_and_tableau,
         p, p, p, p, p,          # y1, dt, accepted, rejected, incomplete
-        i, p,                   # n_rows, stream
+        i, *grid,               # n_rows
     ]
     fn.restype = ctypes.c_int
     fn = libs["fused_cde_solve"].fused_cde_solve_launch
@@ -131,7 +151,7 @@ def _bind(libs: Dict[str, ctypes.CDLL]) -> None:
         p, p, p, p, p, p, f,    # z0, path_ts, path_b, path_c, path_d, eval_ts, dt0
         *field_and_tableau,
         p, p, p, p, p,          # zs, dt, accepted, rejected, incomplete
-        i, i, i, i, p,          # n_rows, C, T, E, stream
+        i, i, i, i, *grid,      # n_rows, C, T, E
     ]
     fn.restype = ctypes.c_int
     u32 = ctypes.c_uint32
@@ -139,6 +159,198 @@ def _bind(libs: Dict[str, ctypes.CDLL]) -> None:
     fn.argtypes = [p, p, ctypes.c_longlong, i,   # x, y, n, dtype
                    u32, u32, u32, f, p]          # key low, key high, thresh, scale, stream
     fn.restype = ctypes.c_int
+
+
+# ---------------------------------------------------------------------------
+# The grid plan of K1 and K2
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class GridPlan:
+    """How K1 or K2 splits a field over a persistent grid of ``n_blocks``
+    blocks for ``n_rows`` rows. ``starts[l]`` holds the ``n_blocks + 1``
+    starts of each block's contiguous range of layer l's outputs, counted
+    in units of ``unit_rows[l]`` rows (1, or C for the cde field's last
+    layer: whole h). The block that owns a unit of the last layer owns that
+    state component of every row. ``resident``: the blocks hold their rows
+    of every layer in shared memory; else they read them from global
+    memory. ``row_chunk``: rows of a layer's input staged in shared memory
+    at a time. ``smem`` and ``scratch`` give each region's offset in
+    floats (shared memory per block; the global scratch buffer of
+    ``scratch_floats``)."""
+
+    n_blocks: int
+    n_rows: int
+    starts: Tuple[Tuple[int, ...], ...]
+    unit_rows: Tuple[int, ...]
+    resident: bool
+    row_chunk: int
+    smem_bytes: int
+    resident_bytes: int
+    own_max: int
+    smem: Dict[str, int]
+    scratch: Dict[str, int]
+    scratch_floats: int
+
+    def words(self) -> List[int]:
+        """The int array the kernel reads: the header (``PLAN_WORDS``),
+        then every layer's starts."""
+        head = {"n_blocks": self.n_blocks, "n_rows": self.n_rows,
+                "resident": int(self.resident), "row_chunk": self.row_chunk,
+                "smem_bytes": self.smem_bytes, "own_max": self.own_max,
+                **self.smem, **self.scratch, "scr_floats": self.scratch_floats}
+        return [head.get(w, 0) for w in PLAN_WORDS] + [s for st in self.starts for s in st]
+
+
+def _balanced(n: int, g: int) -> Tuple[int, ...]:
+    """The starts of ``g`` contiguous ranges over ``n`` items, their sizes
+    within one of each other."""
+    return tuple(b * n // g for b in range(g + 1))
+
+
+def _r4(x: int) -> int:  # floats to a 16-byte multiple
+    return (x + 3) // 4 * 4
+
+
+def _layout(sizes: Dict[str, int]) -> Tuple[Dict[str, int], int]:
+    """Consecutive 16-byte aligned regions of ``sizes`` floats: their
+    offsets and the total."""
+    offsets, at = {}, 0
+    for name, n in sizes.items():
+        offsets[name] = at
+        at += _r4(n)
+    return offsets, at
+
+
+def _grid_plan(dims: Sequence[int], n_rows: int, n_blocks: int, stages: int,
+               channels: int, smem_limit: int) -> GridPlan:
+    dims = tuple(int(d) for d in dims)
+    L = len(dims) - 1
+    if n_blocks < 1 or n_rows < 1:
+        raise ValueError(f"a grid plan needs blocks and rows, got {n_blocks} blocks "
+                         f"and {n_rows} rows")
+    if not 1 <= L <= _MAX_LAYERS or min(dims) < 1:
+        raise ValueError(f"the field's widths {dims} are not 1 to {_MAX_LAYERS} layers")
+    if not 2 <= stages <= _MAX_STAGES:
+        raise ValueError(f"{stages} stages: the kernels take 2 to {_MAX_STAGES}")
+    unit = (1,) * (L - 1) + (channels or 1,)
+    if channels and dims[-1] != dims[0] * channels:
+        raise ValueError(f"the cde field's last layer has {dims[-1]} outputs, not "
+                         f"H*C = {dims[0]}*{channels}")
+    starts = tuple(_balanced(dims[l + 1] // unit[l], n_blocks) for l in range(L))
+    own = [max(s[b + 1] - s[b] for b in range(n_blocks)) for s in starts]
+    N, C = n_rows, channels
+    weights = {f"off_w{l}": own[l] * unit[l] * dims[l] for l in range(L)}
+    budget = (smem_limit - _STATIC_SMEM) // 4
+
+    def layout(resident: bool, chunk: int):
+        return _layout({**(weights if resident else {}),
+                        "off_x": chunk * max(dims[:-1]),
+                        "off_g": chunk * own[-1] * C, "off_dx": chunk * C,
+                        "off_state": (3 + stages) * N * own[-1], "off_rows": _ROW_WORDS * N})
+
+    if layout(False, 1)[1] > budget:
+        raise ValueError(f"no grid plan: {N} rows of the field {dims} do not fit in "
+                         f"{n_blocks} blocks' shared memory even with the weights in "
+                         f"global memory: split them (max_grid_rows)")
+    resident = layout(True, 1)[1] <= budget
+    chunk = next(c for c in range(N, 0, -1) if layout(resident, c)[1] <= budget)
+    smem, total = layout(resident, chunk)
+    scratch, scr_floats = _layout({"scr_xin": 2 * N * dims[0], "scr_partial": n_blocks * N,
+                                   **{f"scr_h{l}": N * dims[l + 1] for l in range(L - 1)}})
+    return GridPlan(n_blocks=n_blocks, n_rows=N, starts=starts, unit_rows=unit,
+                    resident=resident, row_chunk=chunk, smem_bytes=4 * total,
+                    resident_bytes=4 * sum(_r4(v) for v in weights.values()) if resident else 0,
+                    own_max=own[-1], smem=smem, scratch=scratch, scratch_floats=scr_floats)
+
+
+def ode_grid_plan(dims: Sequence[int], n_rows: int, n_blocks: int, smem_limit: int,
+                  stages: int = 7) -> GridPlan:
+    """K1's plan for the field ``dims`` (F -> ... -> F) over ``n_blocks``
+    blocks of ``smem_limit`` bytes of shared memory: every layer split by
+    output neurons, the weights resident in shared memory where the blocks
+    hold them and a chunk of one row, else streamed from global memory.
+    Raises ValueError for more than :func:`max_grid_rows` rows."""
+    return _grid_plan(dims, n_rows, n_blocks, stages, 0, smem_limit)
+
+
+def cde_grid_plan(dims: Sequence[int], channels: int, n_rows: int, n_blocks: int,
+                  smem_limit: int, stages: int = 7) -> GridPlan:
+    """K2's plan for the field ``dims`` (H -> ... -> H*C, C = ``channels``):
+    the hidden layers split by output neurons, the last layer by h, the C
+    rows of one h always in one block; resident or streamed as for
+    :func:`ode_grid_plan`."""
+    if channels < 1:
+        raise ValueError(f"a cde field needs channels, got {channels}")
+    return _grid_plan(dims, n_rows, n_blocks, stages, channels, smem_limit)
+
+
+@functools.lru_cache(maxsize=256)
+def max_grid_rows(dims: Tuple[int, ...], n_blocks: int, smem_limit: int, stages: int = 7,
+                  channels: int = 0) -> int:
+    """The most rows one launch of K1 (``channels`` 0) or K2 takes on the
+    field ``dims``: every block keeps each row's controller state and its
+    state components, so the rows' share of shared memory grows with them.
+    0 where not even one row fits."""
+    def fits(n: int) -> bool:
+        try:
+            _grid_plan(dims, n, n_blocks, stages, channels, smem_limit)
+        except ValueError:
+            return False
+        return True
+
+    lo, hi = 0, 1  # fits(lo), and hi is past the limit once fits(hi) fails
+    while fits(hi):
+        lo, hi = hi, 2 * hi
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid)
+    return lo
+
+
+def in_row_pieces(fn, n: int, max_rows: int, row_args: Sequence[Optional[torch.Tensor]]):
+    """``fn(*pieces)`` on the fewest consecutive pieces of at most
+    ``max_rows`` of the ``n`` rows of each of ``row_args`` (None passes
+    through), as even as they go, its outputs concatenated along rows; one
+    call where ``n <= max_rows``."""
+    if max_rows < 1:
+        raise ValueError("no row fits in one launch")
+    if n <= max_rows:
+        return fn(*row_args)
+    size = -(-n // -(-n // max_rows))
+    outs = [fn(*(None if a is None else a[r0:r0 + size] for a in row_args))
+            for r0 in range(0, n, size)]
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+@functools.lru_cache(maxsize=None)
+def _device_grid(device: torch.device) -> Tuple[int, int]:
+    """One block per SM: the SM count and the shared memory one block can
+    use (the opt-in limit), as the device reports them."""
+    props = torch.cuda.get_device_properties(device)
+    return props.multi_processor_count, props.shared_memory_per_block_optin
+
+
+@functools.lru_cache(maxsize=64)
+def _plan_on(device: torch.device, dims: Tuple[int, ...], channels: int, n_rows: int,
+             stages: int) -> Tuple[GridPlan, torch.Tensor]:
+    """The plan for one block per SM of ``device`` and its words on the
+    device, made once per shape."""
+    sms, smem_limit = _device_grid(device)
+    plan = _grid_plan(dims, n_rows, sms, stages, channels, smem_limit)
+    return plan, torch.tensor(plan.words(), dtype=torch.int32, device=device)
+
+
+def _grid_launch_args(device, dims, channels: int, n_rows: int, stages: int):
+    """The plan, and the launch arguments after the kernel's own: the plan's
+    words, the grid, the shared-memory bytes, a scratch buffer, and the work
+    words (the barrier's counter, then the launch's barriers, lockstep
+    steps and field evaluations, which the kernel writes)."""
+    plan, words = _plan_on(device, tuple(dims), channels, n_rows, stages)
+    scratch = torch.empty(plan.scratch_floats, dtype=torch.float32, device=device)
+    work = torch.zeros(4, dtype=torch.int32, device=device)
+    return plan, work, [words.data_ptr(), plan.n_blocks, plan.smem_bytes, scratch.data_ptr(),
+                        work.data_ptr(), torch.cuda.current_stream(device).cuda_stream], scratch
 
 
 def reset_launch_counts() -> None:
@@ -172,8 +384,8 @@ def _field_and_tableau(kernel: str, layers: Sequence[Layer], in_dim: int, device
                        factor_max: float, max_steps: int):
     """Checks the field's layers (``in_dim`` -> ... -> out) and returns the
     launch arguments that describe the field, the tableau and the
-    controller, and the field's output width. The host arrays stay alive
-    through the ``ctypes.cast`` results that reference them."""
+    controller, and the field's widths. The host arrays stay alive through
+    the ``ctypes.cast`` results that reference them."""
     dims = [in_dim]
     for k, (w, b) in enumerate(layers):
         _check(kernel, f"layers[{k}].w", w, (w.shape[0], dims[-1]), device)
@@ -192,7 +404,7 @@ def _field_and_tableau(kernel: str, layers: Sequence[Layer], in_dim: int, device
             host((c_float * _MAX_STAGES)(*tab.b_err)), host((c_float * _MAX_STAGES)(*tab.c)),
             tab.num_stages, int(tab.fsal), -1.0 / tab.order,
             rtol, atol, safety, factor_min, factor_max, max_steps]
-    return args, dims[-1]
+    return args, dims
 
 
 def _outputs(n: int, device):
@@ -231,7 +443,9 @@ def fused_ode_solve(layers: Sequence[Layer], y0: torch.Tensor,
 
     Returns ``(y1 (N, F), dt_final (N,), accepted, rejected, incomplete)``,
     the counts int32 (N,); ``incomplete[i] = 1`` where row i ran out of
-    ``max_steps`` before ``t1``.
+    ``max_steps`` before ``t1``. On a CUDA device, more rows than one launch
+    takes (:func:`max_grid_rows`, 778 at the flagship field on an H100)
+    run as several launches, each counted in ``.launches``.
     """
     tab = get_tableau(method)
     _check_method(tab, method, activation)
@@ -256,27 +470,36 @@ def fused_ode_solve(layers: Sequence[Layer], y0: torch.Tensor,
     _check(name, "y0", y0, (n, feat), device)
     for arg, x in (("t0", t0), ("t1", t1), ("dt0", dt0)):
         _check(name, arg, x, (n,), device)
-    field, out_dim = _field_and_tableau(
+    field, dims = _field_and_tableau(
         name, layers, feat, device, tab, activation, rtol, atol, safety,
         factor_min, factor_max, max_steps)
-    if out_dim != feat:
-        raise ValueError(f"the field maps {feat} features to {out_dim}")
+    if dims[-1] != feat:
+        raise ValueError(f"the field maps {feat} features to {dims[-1]}")
 
     lib = build()[name]
-    y1 = torch.empty_like(y0)
-    dt_out, acc, rej, inc = _outputs(n, device)
-    err = lib.fused_ode_solve_launch(
-        y0.data_ptr(), t0.data_ptr(), t1.data_ptr(), dt0.data_ptr(), *field,
-        y1.data_ptr(), dt_out.data_ptr(), acc.data_ptr(), rej.data_ptr(),
-        inc.data_ptr(), n, torch.cuda.current_stream(device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"fused_ode_solve kernel launch failed: CUDA error {err}")
-    fused_ode_solve.launches += 1
-    return y1, dt_out, acc, rej, inc
+
+    def launch(y0, t0, t1, dt0):
+        n = y0.shape[0]
+        plan, work, grid, _scratch = _grid_launch_args(device, dims, 0, n, tab.num_stages)
+        y1 = torch.empty_like(y0)
+        dt_out, acc, rej, inc = _outputs(n, device)
+        err = lib.fused_ode_solve_launch(
+            y0.data_ptr(), t0.data_ptr(), t1.data_ptr(), dt0.data_ptr(), *field,
+            y1.data_ptr(), dt_out.data_ptr(), acc.data_ptr(), rej.data_ptr(),
+            inc.data_ptr(), n, *grid,
+        )
+        if err != 0:
+            raise RuntimeError(f"fused_ode_solve kernel launch failed: CUDA error {err}")
+        fused_ode_solve.launches += 1
+        fused_ode_solve.last = (plan, work)
+        return y1, dt_out, acc, rej, inc
+
+    rows = max_grid_rows(tuple(dims), *_device_grid(device), tab.num_stages)
+    return in_row_pieces(launch, n, rows, (y0, t0, t1, dt0))
 
 
 fused_ode_solve.launches = 0
+fused_ode_solve.last = None  # (plan, work words) of the latest launch
 
 
 # ---------------------------------------------------------------------------
@@ -321,7 +544,9 @@ def fused_cde_solve(layers: Sequence[Layer], z0: torch.Tensor, path_ts: torch.Te
 
     Returns ``(zs (N, E, H), dt_final (N,), accepted, rejected,
     incomplete)``, the counts int32 (N,) summed over segments
-    (``incomplete``: segments that ran out of budget).
+    (``incomplete``: segments that ran out of budget). On a CUDA device,
+    more rows than one launch takes (:func:`max_grid_rows`, 2,498 at the
+    flagship cde field on an H100) run as several launches, each counted.
     """
     tab = get_tableau(method)
     _check_method(tab, method, activation)
@@ -353,30 +578,39 @@ def fused_cde_solve(layers: Sequence[Layer], z0: torch.Tensor, path_ts: torch.Te
     coefs = [path_b] + ([] if path_c is None else [path_c, path_d])
     for arg, x in zip(("path_b", "path_c", "path_d"), coefs):
         _check(name, arg, x, (n, T - 1, C), device)
-    field, out_dim = _field_and_tableau(
+    field, dims = _field_and_tableau(
         name, layers, H, device, tab, activation, rtol, atol, safety,
         factor_min, factor_max, max_steps)
-    if out_dim != H * C:
-        raise ValueError(f"the field's last layer has {out_dim} outputs, "
+    if dims[-1] != H * C:
+        raise ValueError(f"the field's last layer has {dims[-1]} outputs, "
                          f"not H*C = {H}*{C}")
 
     lib = build()[name]
-    zs = torch.empty(n, E, H, dtype=torch.float32, device=device)
-    dt_out, acc, rej, inc = _outputs(n, device)
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
-    err = lib.fused_cde_solve_launch(
-        z0.data_ptr(), path_ts.data_ptr(), path_b.data_ptr(), ptr(path_c),
-        ptr(path_d), eval_ts.data_ptr(), float(dt0), *field,
-        zs.data_ptr(), dt_out.data_ptr(), acc.data_ptr(), rej.data_ptr(),
-        inc.data_ptr(), n, C, T, E, torch.cuda.current_stream(device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"fused_cde_solve kernel launch failed: CUDA error {err}")
-    fused_cde_solve.launches += 1
-    return zs, dt_out, acc, rej, inc
+
+    def launch(z0, path_ts, path_b, path_c, path_d, eval_ts):
+        n = z0.shape[0]
+        plan, work, grid, _scratch = _grid_launch_args(device, dims, C, n, tab.num_stages)
+        zs = torch.empty(n, E, H, dtype=torch.float32, device=device)
+        dt_out, acc, rej, inc = _outputs(n, device)
+        err = lib.fused_cde_solve_launch(
+            z0.data_ptr(), path_ts.data_ptr(), path_b.data_ptr(), ptr(path_c),
+            ptr(path_d), eval_ts.data_ptr(), float(dt0), *field,
+            zs.data_ptr(), dt_out.data_ptr(), acc.data_ptr(), rej.data_ptr(),
+            inc.data_ptr(), n, C, T, E, *grid,
+        )
+        if err != 0:
+            raise RuntimeError(f"fused_cde_solve kernel launch failed: CUDA error {err}")
+        fused_cde_solve.launches += 1
+        fused_cde_solve.last = (plan, work)
+        return zs, dt_out, acc, rej, inc
+
+    rows = max_grid_rows(tuple(dims), *_device_grid(device), tab.num_stages, C)
+    return in_row_pieces(launch, n, rows, (z0, path_ts, path_b, path_c, path_d, eval_ts))
 
 
 fused_cde_solve.launches = 0
+fused_cde_solve.last = None  # (plan, work words) of the latest launch
 
 
 # ---------------------------------------------------------------------------

@@ -38,6 +38,12 @@ def problem(n, feat, hidden, zero_rows, seed, gain=1.0, dt0_all=None):
 @pytest.mark.parametrize("n,feat,hidden,zero_rows,gain,dt0_all,over,must_reach", [
     (12, 768, 1024, (3, 7), 1.0, None, {}, ()),  # flagship field, 3 layers x 4 lanes
     (5, 768, 1024, (2,), 1.0, None, {}, ()),     # ragged row count
+    (1, 768, 1024, (), 1.0, None, {}, ()),       # one row
+    (96, 768, 1024, (4, 50), 1.0, None, {}, ()),  # 32 sessions x 3 layers: row chunks
+    (800, 768, 1024, (4, 500), 1.0, None, {}, ()),  # more rows than one launch takes
+    # twice the flagship's widths, too wide for the blocks' shared memory:
+    # the weights are read from global memory (the streamed path)
+    (12, 1536, 2048, (1,), 1.0, None, {}, ()),
     (7, 30, 20, (0,), 1.0, None, {}, ()),        # widths not a multiple of 4: the scalar path
     # a steeper field (weights x3; steeper amplifies the summation-order
     # differences past y's tolerance) from dt0 = 0.1 at a tighter rtol:
@@ -57,7 +63,20 @@ def test_kernel_matches_plain_on_gpu(n, feat, hidden, zero_rows, gain, dt0_all, 
     kw = dict(KW, **over)
     before = cuda_kernels.fused_ode_solve.launches
     out = cuda_kernels.fused_ode_solve(layers, y0, t0, t1, dt0=dt0, **kw)
-    assert cuda_kernels.fused_ode_solve.launches == before + 1
+    # one launch, or as few as take the rows (each block keeps every row's
+    # state); one block per SM; the weights resident in shared memory
+    # unless the field is too wide for it; every block passed every barrier
+    props = torch.cuda.get_device_properties(0)
+    per_launch = cuda_kernels.max_grid_rows((feat, hidden, hidden, feat),
+                                            props.multi_processor_count,
+                                            props.shared_memory_per_block_optin)
+    assert cuda_kernels.fused_ode_solve.launches == before + -(-n // per_launch)
+    assert (n > per_launch) == (n == 800)
+    plan, work = cuda_kernels.fused_ode_solve.last
+    assert plan.n_blocks == props.multi_processor_count
+    assert plan.resident == (feat < 1536)
+    arrivals, barriers = work.tolist()[:2]
+    assert barriers > 0 and arrivals == barriers * plan.n_blocks
     ref = cuda_kernels.fused_ode_solve_plain(
         layers, y0, t0, t1, dt0, method="dopri5", safety=0.9, factor_min=0.2,
         factor_max=10.0, **kw)
@@ -78,7 +97,8 @@ def test_kernel_matches_plain_on_gpu(n, feat, hidden, zero_rows, gain, dt0_all, 
 
 
 CDE_CASE_NAMES = ("main", "cubic", "history_prefix", "rde_off_knots", "n5_ragged", "rejects",
-                  "budget", "history_c54", "history_c24", "advance_collapsed", "advance_full")
+                  "budget", "history_c54", "history_c24", "advance_collapsed", "advance_full",
+                  "n1", "n32")
 
 
 @pytest.mark.gpu
@@ -86,7 +106,8 @@ CDE_CASE_NAMES = ("main", "cubic", "history_prefix", "rde_off_knots", "n5_ragged
 def test_k2_matches_plain_on_gpu(index, name):
     """Per-row counts equal, the case's branch reached (rejected steps,
     zero-length segments, the step budget), zs within the rounding's reach,
-    one launch counted."""
+    one launch counted (three for the 1-row case, whose row must keep its
+    bits in another launch and among other rows)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     import chip_smoke
@@ -96,8 +117,13 @@ def test_k2_matches_plain_on_gpu(index, name):
     assert case[0] == name
     before = cuda_kernels.fused_cde_solve.launches
     out = chip_smoke.check_cde_case(case, torch.device("cuda"), chip_smoke.SEED + index)
-    assert cuda_kernels.fused_cde_solve.launches == before + 1
+    assert out["launches"] == (3 if name == "n1" else 1)
+    assert cuda_kernels.fused_cde_solve.launches == before + out["launches"]
     assert out["max_abs_err"] <= out["zs_atol"]
+    # one block per SM, the field resident; check_cde_case held every block
+    # to every barrier (chip_smoke.grid_launch)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert out["resident"] and out["grid"] == [sms, 1, 1]
 
 
 DROPOUT_CASE_NAMES = tuple(f"{n}_b2" for n in ("conv1", "conv2", "conv3", "conv3_1", "conv4",
