@@ -51,6 +51,30 @@ Phases, one line each, any failure ends the run with a non-zero exit:
           through K2 and through use_kernels=False (no K2 launch); poses
           must agree within 4x how far rounding alone moves them there
           (the pose core in float32 vs float64)
+  eval_data  a synthetic KITTI tree written by the port's own writer
+          (data/synthetic.py) at KITTI's raw image size 376x1241: sequences
+          05, 07 and 10 of 111 frames (11 windows) each, every one over
+          100 m; the port's C++ decoder built (native true/false, build
+          seconds, the build error if any) and its decode rate at
+          376x1241 -> 256x512 with 4 threads. Without a decoder (native, or
+          PIL where the build fails) the run ends here
+  eval_stream  the flagship ode-rnn (seed 0) through make_infer_fn(fold_bn=
+          True) and KittiEvaluator at eval frame dropout 0 and 0.3, batched
+          (3 lanes) and sequential: K1 10 launches a window step, none with
+          use_kernels=False; per-frame poses of batched vs sequential and
+          of the kernel vs use_kernels=False within 1e-3; metrics finite.
+          Prints t_rel / r_rel / t_rmse / r_rmse a sequence, wall seconds,
+          frames/s, the decode-wait share, truncated solves, and one
+          batched stream's device time under torch.profiler
+  eval_cli  cli.test on the flagship model saved as a reference-layout .pth
+          (--pretrain), --batch_runs --run_times 2 --eval_data_dropout 0.3
+          (6 lanes): summary.txt holds three sequences with finite means,
+          the pose dumps exist, K1 10 launches a window step; then
+          --model_type cde on one sequence: K2 once a window, K1 never,
+          finite metrics
+  serve_cli  cli.serve on one sequence, then on the three as sessions: both
+          JSON reports printed as they come, the JAX package's report keys,
+          p50 under 1,000 ms, K1 10 launches a step (warm-up included)
   kernel_dropout  K3 fused_dropout against its plain PyTorch version, bit
           for bit (torch.equal), forward and backward (the autograd
           Function with the kernel and with the plain version): the nine
@@ -87,17 +111,28 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 import torch.nn.functional as F
 
+from ode_vio_tpu_torch.cli.flags import build_parser, config_from_args
+from ode_vio_tpu_torch.cli.serve import main as serve_main
+from ode_vio_tpu_torch.cli.test import main as cli_test_main
 from ode_vio_tpu_torch.config import flagship_config
+from ode_vio_tpu_torch.data import native_loader
+from ode_vio_tpu_torch.data.evaluation import METRICS, EvalPartition, KittiEvaluator
+from ode_vio_tpu_torch.data.kitti import load_sequence
+from ode_vio_tpu_torch.data.synthetic import make_kitti_tree
 from ode_vio_tpu_torch.models.deepvio import DeepVIO, create_model
 from ode_vio_tpu_torch.models.encoders import TRUNK, TRUNK_NAMES
 from ode_vio_tpu_torch.ops import cuda_kernels
@@ -105,7 +140,8 @@ from ode_vio_tpu_torch.ops.interpolation import make_path
 from ode_vio_tpu_torch.ops.mlp import cde_func_sizes, init_mlp, ode_func_sizes
 from ode_vio_tpu_torch.ops.solvers import get_tableau, odeint
 from ode_vio_tpu_torch.serving import StreamingEngine
-from ode_vio_tpu_torch.training.loop import create_train_state, make_train_step
+from ode_vio_tpu_torch.training.loop import create_train_state, make_infer_fn, make_train_step
+from ode_vio_tpu_torch.utils import geometry
 
 SEED = 0
 SESSIONS = 4
@@ -1018,6 +1054,310 @@ def train_phases(dev) -> dict:
     return {"train": n_train, "train_encoder": n_enc, "train_plain": train_plain(dev)}
 
 
+# ---------------------------------------------------------------------------
+# Streaming KITTI evaluation and the test / serve command lines
+# ---------------------------------------------------------------------------
+
+EVAL_SEQS = ("05", "07", "10")
+EVAL_FRAMES = 111            # 11 windows a sequence (real: 2,761 / 1,101 / 1,201)
+KITTI_HW = (376, 1241)       # KITTI's raw image size
+EVAL_SPEED_SCALE = 15.0      # ~1.5 m a frame: each sequence covers > 100 m
+DECODE_THREADS = 4
+EVAL_DROPOUTS = (0.0, 0.3)   # no eval dropout, and the flagship's own
+# the keys of the JAX package's serve reports (ode_vio_tpu/cli/serve.py);
+# the single-session one adds solver_incomplete only where it is not 0
+SERVE_KEYS = {"seq", "windows", "frames", "latency_ms_p50", "latency_ms_p90",
+              "latency_ms_p99", "frames_per_sec", "t_rmse", "trajectory"}
+SERVE_MULTI_KEYS = {"sessions", "steps", "frames", "latency_ms_p50", "latency_ms_p90",
+                    "latency_ms_p99", "frames_per_sec", "t_rmse", "solver_incomplete"}
+SERVE_P50_LIMIT_MS = 1000.0  # a window spans ~1 s of driving
+EVAL_POSE_ATOL = 1e-3        # the core phase's limit: two rtol 1e-2 solves
+
+
+def eval_config():
+    """The configuration the eval phases drive (the flagship's)."""
+    return flagship_config()
+
+
+def model_flags(cfg) -> list:
+    """Command-line flags that build ``cfg``'s model and solver."""
+    m, s = cfg.model, cfg.solver
+    return ["--model_type", m.model_type, "--img_h", str(m.img_h), "--img_w", str(m.img_w),
+            "--seq_len", str(m.seq_len), "--v_f_len", str(m.v_f_len),
+            "--i_f_len", str(m.i_f_len), "--fuse_method", m.fuse_method,
+            "--ode_hidden_dim", str(m.ode_hidden_dim),
+            "--ode_fn_num_layers", str(m.ode_fn_num_layers),
+            "--ode_activation_fn", m.ode_activation_fn,
+            "--rnn_num_layers", str(m.rnn_num_layers), "--compute_dtype", m.compute_dtype,
+            "--cde_hidden_dim", str(m.cde_hidden_dim),
+            "--ode_solver", s.method, "--ode_rtol", str(s.rtol), "--ode_atol", str(s.atol),
+            "--ode_max_steps", str(s.max_steps)]
+
+
+def check_launches(what: str, got: int, want: int) -> None:
+    if got != want:
+        raise AssertionError(f"{what}: {got} launches, expected {want}")
+
+
+def eval_data(work: Path) -> Path:
+    """The synthetic KITTI tree at KITTI's image size, written by the port's
+    own writer; the decoder built, and its rate at 376x1241 -> 256x512."""
+    m = eval_config().model
+    t = time.perf_counter()
+    root = make_kitti_tree(work / "kitti", seqs=EVAL_SEQS, n_frames=EVAL_FRAMES,
+                           img_hw=KITTI_HW, seed=SEED, speed_scale=EVAL_SPEED_SCALE)
+    write_s = time.perf_counter() - t
+    pngs = sorted(root.glob("sequences/*/image_2/*.png"))
+    lengths = {}
+    for seq in EVAL_SEQS:
+        dist, _ = geometry.trajectory_distances(load_sequence(root, seq).abs_poses)
+        lengths[seq] = float(dist[-1])
+        if dist[-1] <= 100.0:
+            raise AssertionError(f"eval_data: sequence {seq} covers {dist[-1]} m (<= 100)")
+    t = time.perf_counter()
+    native = native_loader.is_available()
+    build_s = time.perf_counter() - t
+    batch = pngs[:4 * m.seq_len]
+    native_loader.decode_batch(batch[:2], (m.img_h, m.img_w))  # the fallback's first import
+    t = time.perf_counter()
+    imgs = native_loader.decode_batch(batch, (m.img_h, m.img_w), threads=DECODE_THREADS)
+    decode_s = time.perf_counter() - t
+    if imgs.shape != (len(batch), m.img_h, m.img_w, 3) or not (
+            imgs.min() >= 0.0 and imgs.max() <= 1.0):
+        raise AssertionError(f"eval_data: decoded {imgs.shape}, range "
+                             f"[{imgs.min()}, {imgs.max()}]")
+    phase("eval_data", sequences=list(EVAL_SEQS), frames=EVAL_FRAMES, image_hw=list(KITTI_HW),
+          png_bytes=sum(p.stat().st_size for p in pngs), write_s=write_s,
+          sequence_m=lengths, native=native, build_s=build_s,
+          build_error=native_loader.build_error(), decode_threads=DECODE_THREADS,
+          decode_frames_per_s=len(batch) / decode_s, decode_to=[m.img_h, m.img_w])
+    return root
+
+
+def recorder(infer, log):
+    """``infer`` with each call's poses appended to ``log`` (numpy)."""
+    def rec(imgs, imus, ts, carry=None):
+        poses, carry = infer(imgs, imus, ts, carry)
+        log.append(poses.cpu().numpy())
+        return poses, carry
+
+    rec.device = infer.device
+    return rec
+
+
+def lane_poses(log, parts, batched: bool):
+    """Each partition's per-frame poses from a stream's recorded calls:
+    one call per window step with a lane per partition (batched), or the
+    partitions one after another, one window a call."""
+    out, k = [], 0
+    for lane, part in enumerate(parts):
+        rows = []
+        for i, w in enumerate(part.windows):
+            poses = log[i][lane] if batched else log[k + i][0]
+            rows.append(poses[: part.seq_len - 1 - w["pad"]])
+        k += 0 if batched else len(part)
+        out.append(np.concatenate(rows))
+    return out
+
+
+def evaluator(root, cfg, dropout: float):
+    m = cfg.model
+    return KittiEvaluator(root, EVAL_SEQS, m.seq_len, (m.img_h, m.img_w), dropout,
+                          rng=np.random.default_rng(SEED))
+
+
+def stream(infer, root, cfg, dropout: float, batched: bool, name: str, k1_per_step: int):
+    """One stream of the three sequences with K1's count set to 0 just
+    before and read just after, which must be ``k1_per_step`` a window
+    step: (evaluator, per-sequence poses, launches)."""
+    ev = evaluator(root, cfg, dropout)
+    log = []
+    cuda_kernels.reset_launch_counts()          # this path's run starts here
+    res = ev.eval(recorder(infer, log), batched=batched)
+    launches = cuda_kernels.fused_ode_solve.launches
+    steps = max(len(p) for p in ev.partitions) if batched else sum(map(len, ev.partitions))
+    check_launches(f"{name} K1", launches, k1_per_step * steps)
+    for seq, r in zip(EVAL_SEQS, res):
+        if not all(math.isfinite(r[k]) for k in METRICS):
+            raise AssertionError(f"{name}: sequence {seq} metrics {r}")
+    return ev, lane_poses(log, ev.partitions, batched), launches
+
+
+def profile_eval(infer, root, cfg) -> dict:
+    """Device time over one batched stream (eval dropout 0), from
+    torch.profiler; the idle share is the part of its wall time with no
+    kernel running (one stream)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ev = evaluator(root, cfg, 0.0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ev.eval(infer, batched=True)
+    kernels = {}
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", 0.0)
+        if dev_us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[e.key] = kernels.get(e.key, 0.0) + dev_us / 1e3
+    busy = sum(kernels.values())
+    wall_ms = ev.timing["wall_s"] * 1e3
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+    return {"profiled_wall_ms": wall_ms, "device_busy_ms": busy,
+            "device_busy_ms_per_step": busy / ev.timing["steps"],
+            "idle_share": 1.0 - busy / wall_ms, "top_kernels_ms": {k[:80]: v for k, v in top}}
+
+
+def eval_stream(dev, root) -> dict:
+    """The flagship ode-rnn (seed 0) through make_infer_fn(fold_bn=True)
+    and KittiEvaluator at eval dropout 0 and 0.3: batched (3 lanes) and
+    sequential, K1 10 launches a window step; the two agree, and the
+    kernel path agrees with use_kernels=False, within 1e-3. Returns K1's
+    launches on the batched and the sequential streams."""
+    cfg = eval_config()
+    model = create_model(cfg, seed=SEED, device=dev)
+    infer = make_infer_fn(model, fold_bn=True, device=dev)
+    plain = make_infer_fn(meta_model(cfg, use_kernels=False), model.state_dict(), fold_bn=True,
+                          device=dev)
+    # a cold and a carried window through each callable first, so the first
+    # timed stream pays no one-time cost (cuDNN's plans, first launches)
+    warm = evaluator(root, cfg, 0.0).partitions[0][0]
+    x = tuple(torch.from_numpy(a[None]).to(dev) for a in (warm.imgs, warm.imus, warm.ts))
+    for f in (infer, plain):
+        f(*x, f(*x)[1])[0].cpu()
+    per_step = cfg.model.seq_len - 1            # one K1 launch a frame interval
+    launches = {"eval_batched": 0, "eval_sequential": 0}
+    runs = {}
+    for dropout in EVAL_DROPOUTS:
+        infer.reset_incomplete()
+        ev_b, poses_b, n_b = stream(infer, root, cfg, dropout, True, "eval_batched", per_step)
+        incomplete_b = infer.incomplete()
+        ev_s, poses_s, n_s = stream(infer, root, cfg, dropout, False, "eval_sequential",
+                                    per_step)
+        launches["eval_batched"] += n_b
+        launches["eval_sequential"] += n_s
+        _, poses_p, _ = stream(plain, root, cfg, dropout, True, "eval_plain", 0)
+        seq_diff = max(float(np.abs(a - b).max()) for a, b in zip(poses_b, poses_s))
+        plain_diff = max(float(np.abs(a - b).max()) for a, b in zip(poses_b, poses_p))
+        runs[str(dropout)] = {
+            "frames": [len(p) for p in poses_b],
+            "windows": [len(p) for p in ev_b.partitions],
+            "metrics": {seq: {k: r[k] for k in METRICS}
+                        for seq, r in zip(EVAL_SEQS, ev_b.results)},
+            "batched_vs_sequential": seq_diff, "kernel_vs_plain": plain_diff,
+            "incomplete": incomplete_b, "incomplete_all_streams": infer.incomplete(),
+            **{f"{kind}_{k}": t[k] for kind, t in (("batched", ev_b.timing),
+                                                  ("sequential", ev_s.timing))
+               for k in ("wall_s", "decode_wait_s", "steps", "frames")},
+            "batched_frames_per_s": ev_b.timing["frames"] / ev_b.timing["wall_s"],
+            "sequential_frames_per_s": ev_s.timing["frames"] / ev_s.timing["wall_s"],
+            "batched_decode_wait_share": ev_b.timing["decode_wait_s"] / ev_b.timing["wall_s"],
+            "sequential_decode_wait_share": ev_s.timing["decode_wait_s"] / ev_s.timing["wall_s"],
+        }
+        if seq_diff > EVAL_POSE_ATOL or plain_diff > EVAL_POSE_ATOL:
+            raise AssertionError(f"eval_stream dropout {dropout}: batched vs sequential "
+                                 f"{seq_diff}, kernel vs plain {plain_diff} (> {EVAL_POSE_ATOL})")
+    phase("eval_stream", pose_atol=EVAL_POSE_ATOL, launches=launches, runs=runs,
+          profile=profile_eval(infer, root, cfg))
+    return {"model": model, "launches": launches}
+
+
+def summary_means(path: Path) -> dict:
+    """{seq: {metric: mean}} from cli.test's summary.txt."""
+    out = {}
+    for line in path.read_text().splitlines():
+        seq, stats = line.split(": ", 1)
+        out[seq.split()[-1]] = {k: float(v) for k, v in re.findall(r"(\w+): (\S+) \+-", stats)}
+    return out
+
+
+def check_summary(name: str, path: Path, seqs) -> dict:
+    means = summary_means(path)
+    if sorted(means) != sorted(seqs) or not all(
+            len(v) == len(METRICS) and all(math.isfinite(x) for x in v.values())
+            for v in means.values()):
+        raise AssertionError(f"{name}: summary {means}")
+    return means
+
+
+def eval_cli(dev, work: Path, root, model) -> dict:
+    """cli.test on the flagship model saved as a reference-layout .pth:
+    --batch_runs --run_times 2 --eval_data_dropout 0.3 (6 lanes), then
+    --model_type cde on one sequence (K2 once a window). Returns the
+    launches of both runs."""
+    cfg = eval_config()
+    pth = work / "flagship.pth"
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, pth)
+    common = ["--data_dir", str(root), "--save_dir", str(work / "results"), "--device", str(dev)]
+    parsed = config_from_args(build_parser().parse_args(model_flags(cfg)))
+    if (parsed.model, parsed.solver) != (cfg.model, cfg.solver):
+        raise AssertionError(f"eval_cli: the flags build {parsed.model}, {parsed.solver}, "
+                             f"not {cfg.model}, {cfg.solver}")
+    runs, dropout = 2, 0.3
+    # the command line's partitions: run r draws its dropout from seed + r
+    steps = max(len(p) for r in range(runs) for p in KittiEvaluator(
+        root, EVAL_SEQS, cfg.model.seq_len, eval_dropout=dropout,
+        rng=np.random.default_rng(SEED + r)).partitions)
+    cuda_kernels.reset_launch_counts()          # this path's run starts here
+    t = time.perf_counter()
+    cli_test_main(["--experiment_name", "flagship", "--pretrain", str(pth), *common,
+                   *model_flags(cfg), "--val_seq", *EVAL_SEQS, "--batch_runs",
+                   "--run_times", str(runs), "--eval_data_dropout", str(dropout),
+                   "--seed", str(SEED)])
+    wall_s = time.perf_counter() - t
+    k1 = cuda_kernels.fused_ode_solve.launches
+    check_launches("eval_cli K1", k1, (cfg.model.seq_len - 1) * steps)
+    out = work / "results" / "flagship_test"
+    means = check_summary("eval_cli", out / "summary.txt", EVAL_SEQS)
+    for seq in EVAL_SEQS:
+        for kind in ("pred", "gt"):
+            if not (out / "poses" / f"{seq}_{kind}.txt").exists():
+                raise AssertionError(f"eval_cli: no pose dump {seq}_{kind}.txt")
+    cde_windows = len(EvalPartition(root, EVAL_SEQS[0], cfg.model.seq_len))
+    cuda_kernels.reset_launch_counts()          # this path's run starts here
+    t = time.perf_counter()
+    cli_test_main(["--experiment_name", "cde", *common, *model_flags(cfg),
+                   "--model_type", "cde", "--val_seq", EVAL_SEQS[0], "--seed", str(SEED)])
+    cde_wall_s = time.perf_counter() - t
+    k2 = cuda_kernels.fused_cde_solve.launches
+    check_launches("eval_cli cde K2", k2, cde_windows)
+    check_launches("eval_cli cde K1", cuda_kernels.fused_ode_solve.launches, 0)
+    cde_means = check_summary("eval_cli cde", work / "results" / "cde_test" / "summary.txt",
+                              EVAL_SEQS[:1])
+    phase("eval_cli", lanes=runs * len(EVAL_SEQS), window_steps=steps, wall_s=wall_s,
+          k1_launches=k1, summary=means, cde_windows=cde_windows, cde_k2_launches=k2,
+          cde_wall_s=cde_wall_s, cde_summary=cde_means)
+    return {"k1": k1, "k2": k2, "pth": pth}
+
+
+def serve_cli(dev, work: Path, root, pth: Path) -> dict:
+    """cli.serve on one sequence, then on the three as sessions of one
+    engine; both reports printed as they come, with the JAX package's keys
+    and p50 under 1 s. Returns K1's launches of both runs."""
+    cfg = eval_config()
+    common = ["--data_dir", str(root), "--save_dir", str(work / "results"), "--device", str(dev),
+              "--pretrain", str(pth), *model_flags(cfg)]
+    out, launches = {}, {}
+    for name, seqs, keys in (("serve_cli_single", EVAL_SEQS[:1], SERVE_KEYS),
+                             ("serve_cli_multi", EVAL_SEQS, SERVE_MULTI_KEYS)):
+        timing = {}
+        cuda_kernels.reset_launch_counts()      # this path's run starts here
+        report = serve_main(["--experiment_name", name, *common, "--val_seq", *seqs],
+                            timing=timing)
+        launches[name] = cuda_kernels.fused_ode_solve.launches
+        steps = report["windows"] if len(seqs) == 1 else report["steps"]
+        # the warm-up runs the cold-start and the carried forward once each
+        check_launches(f"{name} K1", launches[name], (cfg.model.seq_len - 1) * (steps + 2))
+        if set(report) - {"solver_incomplete"} != keys - {"solver_incomplete"} or (
+                len(seqs) > 1 and set(report) != keys):
+            raise AssertionError(f"{name}: report keys {sorted(report)}")
+        if not report["latency_ms_p50"] < SERVE_P50_LIMIT_MS:
+            raise AssertionError(f"{name}: p50 {report['latency_ms_p50']} ms "
+                                 f"(>= {SERVE_P50_LIMIT_MS})")
+        out[name] = {"wall_s": timing["wall_s"], "decode_wait_s": timing["decode_wait_s"],
+                     "decode_wait_share": timing["decode_wait_s"] / timing["wall_s"],
+                     "launches": launches[name]}
+    phase("serve_cli", **out)
+    return launches
+
+
 def main() -> None:
     seconds = {}
 
@@ -1034,6 +1374,21 @@ def main() -> None:
     k2 = timed("kernel_cde", kernel_cde_check, dev)
     k1_launches = timed("slice_core", slice_phases, dev)
     k2_by_path = timed("cde_rde", cde_phases, dev)
+    # the eval and serve phases work in a directory of the checkout that
+    # is removed afterwards (the synthetic tree is 0.42 GB)
+    work = Path(__file__).resolve().parent / "ode_vio_tpu_torch" / "_build" / (
+        f"eval_smoke-{os.getpid()}")
+    try:
+        root = timed("eval_data", eval_data, work)
+        ev = timed("eval_stream", eval_stream, dev, root)
+        cli = timed("eval_cli", eval_cli, dev, work, root, ev.pop("model"))
+        torch.cuda.empty_cache()
+        serve_launches = timed("serve_cli", serve_cli, dev, work, root, cli["pth"])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    k1_by_path = {"slice": k1_launches, **ev["launches"], "eval_cli": cli["k1"],
+                  **serve_launches}
+    k2_by_path["eval_cli_cde"] = cli["k2"]
     k3 = timed("kernel_dropout", kernel_dropout_check, dev)
     k3_by_path = timed("train", train_phases, dev)
     phase("seconds", **seconds)
@@ -1041,7 +1396,8 @@ def main() -> None:
         {"name": "fused_ode_solve", "route": "cuda",
          "source": "ode_vio_tpu_torch/csrc/fused_ode_solve.cu",
          "replaces": "ode_vio_tpu/ops/pallas_kernels.py:42",
-         "launches": k1_launches, "library_ms": None, **k1},
+         "launches": sum(k1_by_path.values()), "launches_by_path": k1_by_path,
+         "library_ms": None, **k1},
         {"name": "fused_cde_solve", "route": "cuda",
          "source": "ode_vio_tpu_torch/csrc/fused_cde_solve.cu",
          "replaces": "ode_vio_tpu/ops/pallas_kernels.py:213",

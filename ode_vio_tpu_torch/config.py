@@ -3,9 +3,9 @@
 The port's copy of the solver and model dataclasses of the JAX package
 (``ode_vio_tpu/config.py``): same field names, same defaults, so a
 configuration reads the same in both packages. Only the fields that a
-ported module reads are here; the others (training, the adjoint, the
-rnn/cfc/ltc cores, the s2d and int8 encoder rewrites, the data and
-carry-exposure settings) come with the modules that read them.
+ported module reads are here; the others (the adjoint, the rnn/cfc/ltc
+cores, the s2d and int8 encoder rewrites, the carry-exposure and TBPTT
+settings, the mesh) come with the modules that read them.
 
 One knob changes meaning: the JAX package's ``use_pallas`` tri-state
 becomes :attr:`ModelConfig.use_kernels`, the switch for the port's
@@ -27,6 +27,7 @@ JAX falls back to ``nn.Dropout``.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Sequence
 
 import torch
 
@@ -118,6 +119,26 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class DataConfig:
+    """Dataset paths, windowing and irregularity injection (the
+    reference's KITTI_dataset.py:20-138 and its augmentation flags)."""
+
+    data_dir: str = "./dataset"
+    train_seq: Sequence[str] = ("00", "01", "02", "04", "08", "09")
+    val_seq: Sequence[str] = ("05", "07", "10")
+    seq_len: int = 11
+    imu_freq: int = 10           # IMU rows per image interval (IMU_FREQ)
+    data_dropout: float = 0.0    # train-time random frame-drop probability
+    data_dropout_std: float = 0.0
+    eval_data_dropout: float = 0.0
+    hflip: bool = False
+    color: bool = False
+    normalize: bool = False
+    workers: int = 8
+    shuffle: bool = True
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     """The optimisation schedule: Adam (or SGD with momentum 0.9) after a
     clip by global norm and weight decay added to the gradient, a
@@ -147,12 +168,19 @@ class TrainConfig:
 
 @dataclass(frozen=True)
 class Config:
+    experiment_name: str = "experiment"
+    save_dir: str = "./results"
+    pretrain: str | None = None          # reference-layout checkpoint file
+    pretrain_flownet: str | None = None  # torch FlowNet-S weights
+    run_times: int = 1                   # eval repetitions (test_model.py:101)
+
     model: ModelConfig = field(default_factory=ModelConfig)
     solver: SolverConfig = field(default_factory=SolverConfig)
     # the cde/rde solver: the reference's rtol 1e-4 with a wider eval
     # step budget than the ode-rnn's
     cde_solver_cfg: SolverConfig = field(
         default_factory=lambda: SolverConfig(rtol=1e-4, atol=1e-6, max_steps=256))
+    data: DataConfig = field(default_factory=DataConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
 
 
@@ -170,7 +198,8 @@ def resolve_device(device) -> torch.device:
 def flagship_config() -> Config:
     """The canonical ODE-VIO configuration: softplus ODE MLP with 2 hidden
     layers of 1024, 3 RNN layers, soft fusion, 256x512 images, seq_len 11,
-    trained with the image encoder frozen."""
+    trained with the image encoder frozen, with frame dropout 0.3 in
+    training and in evaluation."""
     return Config(
         model=ModelConfig(
             model_type="ode-rnn",
@@ -181,4 +210,6 @@ def flagship_config() -> Config:
             fuse_method="soft",
         ),
         train=TrainConfig(freeze_encoder=True),
+        data=DataConfig(data_dropout=0.3, data_dropout_std=0.1,
+                        eval_data_dropout=0.3),
     )

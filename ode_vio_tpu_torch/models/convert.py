@@ -17,10 +17,17 @@ accepts. Layout rules (those of ``ode_vio_tpu/models/convert.py``):
 * BatchNorm scale/bias/mean/var map to weight/bias/running_mean/
   running_var, plus a zero ``num_batches_tracked``. A BN-folded tree (no
   bn entries, conv biases present) converts too.
+
+:func:`load_pretrain` is the ``--pretrain`` of the command lines: a
+reference-layout checkpoint file (a torch ``.pth``/``.tar``/``.pt``, or
+the ``.npz`` that ``python -m ode_vio_tpu.cli.export`` writes) is already
+the port's state_dict layout, so it is structure-checked and loaded with
+``strict=True``, nothing converted.
 """
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Any, Dict, Mapping
 
 import numpy as np
@@ -104,3 +111,56 @@ def from_jax_variables(variables: Mapping[str, Any], cfg: ModelConfig) -> Dict[s
     _dense(sd, "Pose_net.regressor.2", pose["regressor"]["fc1"])
 
     return {k: torch.tensor(np.asarray(v)) for k, v in sd.items()}
+
+
+def load_reference_file(path) -> Dict[str, torch.Tensor]:
+    """A reference-layout checkpoint file as a state_dict of CPU tensors:
+    ``.npz`` through numpy, anything else through ``torch.load`` (a bare
+    state_dict or a dict holding one under ``state_dict``)."""
+    path = Path(path)
+    if path.suffix == ".npz":
+        with np.load(path) as z:
+            return {k: torch.from_numpy(z[k]) for k in z.files}
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    sd = obj.get("state_dict", obj) if isinstance(obj, dict) else obj
+    return {k: torch.as_tensor(v) for k, v in sd.items()}
+
+
+def check_structure(sd: Mapping[str, torch.Tensor], model: torch.nn.Module) -> None:
+    """Raise ``SystemExit`` with a readable message when a checkpoint does
+    not match the model the flags built (wrong ``--model_type``, widths or
+    layer counts) instead of a shape error further down."""
+    want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    got = {k: tuple(v.shape) for k, v in sd.items()}
+    if got == want:
+        return
+    missing = sorted(set(want) - set(got))[:5]
+    extra = sorted(set(got) - set(want))[:5]
+    shape = sorted(f"{k}: ckpt{got[k]} != model{want[k]}"
+                   for k in set(got) & set(want) if got[k] != want[k])[:5]
+    raise SystemExit(
+        "the checkpoint does not match the model flags: "
+        f"missing {missing} extra {extra} shape-mismatch {shape}")
+
+
+def load_pretrain(model: torch.nn.Module, path) -> None:
+    """Load a reference-layout checkpoint file into ``model`` (strict).
+    BatchNorm ``num_batches_tracked`` counters, which the JAX package's
+    export leaves out, are taken as 0; inference never reads them."""
+    path = Path(path)
+    if path.is_dir():
+        raise SystemExit(
+            f"--pretrain {path} is a directory: a JAX (Orbax) TrainState "
+            "checkpoint, which the port cannot read. Convert it with "
+            "`python -m ode_vio_tpu.cli.export --pretrain <dir> --out "
+            "model.npz` (same model flags) and pass the .npz file. The "
+            "port's own checkpoints come with training/checkpoint.py in the "
+            "training command-line slice (ROADMAP.md, Queue 1 item 5).")
+    if not path.is_file():
+        raise SystemExit(f"--pretrain {path}: no such file")
+    sd = load_reference_file(path)
+    for k, v in model.state_dict().items():
+        if k.endswith("num_batches_tracked") and k not in sd:
+            sd[k] = torch.zeros_like(v, device="cpu")
+    check_structure(sd, model)
+    model.load_state_dict(sd, strict=True)

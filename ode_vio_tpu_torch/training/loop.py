@@ -224,6 +224,7 @@ def make_infer_fn(model: DeepVIO, state_dict: Optional[Dict[str, torch.Tensor]] 
     boolean lane mask, keeps lanes that serve no real window out of the
     counts. Hard fusion draws its Gumbel noise from a generator seeded
     with 0 on every call, as the JAX callable applies ``PRNGKey(0)``.
+    ``infer.device`` is the device its inputs must be on.
     """
     device = resolve_device(device)
     cfg = model.cfg
@@ -265,4 +266,5 @@ def make_infer_fn(model: DeepVIO, state_dict: Optional[Dict[str, torch.Tensor]] 
         None if infer._inc_lanes is None else infer._inc_lanes.cpu().numpy())
     infer.reset_incomplete = reset_incomplete
     infer.set_variables = set_variables
+    infer.device = device
     return infer

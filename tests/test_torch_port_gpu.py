@@ -8,6 +8,8 @@ from the repository's root with
 K2's cases are chip_smoke.py's CDE_CASES, checked by its check_cde_case;
 K3's are its DROPOUT_CASES, checked by check_dropout_case."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -162,3 +164,53 @@ def test_k3_refuses_what_it_cannot_take():
         cuda_kernels.fused_dropout(x.double(), 1, 0.5)
     assert cuda_kernels.fused_dropout(x, 1, 0.0) is x
     assert cuda_kernels.fused_dropout.launches == before
+
+
+@pytest.mark.gpu
+def test_eval_stream_kernel_matches_solver_core_on_gpu(tmp_path):
+    """A tiny synthetic tree of two sequences streamed through the
+    evaluator, batched, on the card: with K1 (one launch per frame interval
+    of each window step) and with use_kernels=False (none); the per-frame
+    poses within 1e-3 (two error-controlled solves at rtol 1e-2 that sum in
+    other orders)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from ode_vio_tpu_torch.config import Config, ModelConfig
+    from ode_vio_tpu_torch.data.evaluation import KittiEvaluator
+    from ode_vio_tpu_torch.data.synthetic import make_kitti_tree
+    from ode_vio_tpu_torch.models.deepvio import create_model
+    from ode_vio_tpu_torch.training.loop import make_infer_fn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    seq_len = 5
+    root = make_kitti_tree(tmp_path, seqs=("00", "05"), n_frames=23, img_hw=(40, 90),
+                           speed_scale=40.0)
+    cfg = Config(model=ModelConfig(img_h=32, img_w=64, seq_len=seq_len, v_f_len=64,
+                                   i_f_len=32, ode_hidden_dim=32, ode_activation_fn="softplus",
+                                   ode_fn_num_layers=2, fuse_method="soft",
+                                   compute_dtype="float32"))
+    model = create_model(cfg, seed=0)
+    poses, launches = [], []
+    for use_kernels in (True, False):
+        net = create_model(Config(model=dataclasses.replace(cfg.model, use_kernels=use_kernels)),
+                           seed=0)
+        net.load_state_dict(model.state_dict())
+        infer = make_infer_fn(net, fold_bn=True)
+        log = []
+
+        def rec(imgs, imus, ts, carry=None):
+            out, carry = infer(imgs, imus, ts, carry)
+            log.append(out.cpu().numpy())
+            return out, carry
+
+        rec.device = infer.device
+        ev = KittiEvaluator(root, ("00", "05"), seq_len, (32, 64), 0.3,
+                            rng=np.random.default_rng(1))
+        before = cuda_kernels.fused_ode_solve.launches
+        res = ev.eval(rec, batched=True)
+        launches.append(cuda_kernels.fused_ode_solve.launches - before)
+        assert all(np.isfinite(r["t_rmse"]) for r in res)
+        poses.append(np.stack(log))               # (window steps, lanes, S-1, 6)
+    assert launches == [len(poses[0]) * (seq_len - 1), 0]
+    np.testing.assert_allclose(poses[0], poses[1], rtol=0, atol=1e-3)

@@ -1,9 +1,11 @@
 """The port stands alone and never falls back: no module of
-ode_vio_tpu_torch (nor chip_smoke.py) imports JAX or the JAX package, and
-its entry points default to CUDA, so on a machine without a card they
-raise instead of quietly running on the CPU."""
+ode_vio_tpu_torch (nor chip_smoke.py) imports JAX or the JAX package or
+names a path under the JAX package's directories, and its entry points
+(the command lines too) default to CUDA, so on a machine without a card
+they raise instead of quietly running on the CPU."""
 
 import ast
+import re
 from pathlib import Path
 
 import pytest
@@ -33,6 +35,42 @@ def test_port_imports_nothing_of_jax():
     bad = {str(f.relative_to(ROOT)): r for f in files for r in imported_roots(f)
            if r in FORBIDDEN}
     assert not bad, f"forbidden imports: {bad}"
+
+
+# a string that names a file or directory under native/ or ode_vio_tpu/;
+# "file.py:line" references (chip_smoke.py's kernel table) name no path
+# that the code opens
+JAX_PATH = re.compile(r"^(\.?/)?(native|ode_vio_tpu)(/|$)")
+LINE_REF = re.compile(r"\.py:\d+$")
+
+
+def code_strings(path: Path):
+    """The string constants of ``path`` outside docstrings."""
+    tree = ast.parse(path.read_text(), str(path))
+    docstrings = {id(node.body[0].value) for node in ast.walk(tree)
+                  if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                                       ast.AsyncFunctionDef))
+                  and node.body and isinstance(node.body[0], ast.Expr)
+                  and isinstance(node.body[0].value, ast.Constant)}
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and id(node) not in docstrings):
+            yield node.value
+
+
+def test_port_names_no_path_of_the_jax_package():
+    """The port keeps its own copies (the decoder's source is
+    ode_vio_tpu_torch/csrc/vioio.cpp): no string in its code is a path
+    under native/ or ode_vio_tpu/, and the decoder builds from its own
+    source into its own build directory."""
+    from ode_vio_tpu_torch.data import native_loader
+
+    bad = {str(f.relative_to(ROOT)): s for f in port_sources() for s in code_strings(f)
+           if JAX_PATH.match(s) and not LINE_REF.search(s)}
+    assert not bad, f"paths under the JAX package: {bad}"
+    pkg = ROOT / "ode_vio_tpu_torch"
+    assert native_loader._SRC == pkg / "csrc" / "vioio.cpp"
+    assert native_loader.library_path().parent == pkg / "_build"
 
 
 def test_entry_points_default_to_cuda_and_do_not_fall_back():
@@ -106,3 +144,14 @@ def test_cde_and_rde_models_default_to_cuda(model_type):
     assert model.cde_solver == cfg.cde_solver_cfg
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         StreamingEngine(model, max_sessions=2)
+
+
+@pytest.mark.parametrize("command", ["test", "serve"])
+def test_command_lines_default_to_cuda(command):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid here")
+    import importlib
+
+    main = importlib.import_module(f"ode_vio_tpu_torch.cli.{command}").main
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["--data_dir", "synthetic", "--val_seq", "05"])
