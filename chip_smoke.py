@@ -64,8 +64,9 @@ Phases, one line each, any failure ends the run with a non-zero exit:
           use_kernels=False; per-frame poses of batched vs sequential and
           of the kernel vs use_kernels=False within 1e-3; metrics finite.
           Prints t_rel / r_rel / t_rmse / r_rmse a sequence, wall seconds,
-          frames/s, the decode-wait share, truncated solves, and one
-          batched stream's device time under torch.profiler
+          frames/s, the decode-wait share, truncated solves, one batched
+          stream's device time under torch.profiler, and batched vs
+          sequential with float32 encoders (printed, not bounded)
   eval_cli  cli.test on the flagship model saved as a reference-layout .pth
           (--pretrain), --batch_runs --run_times 2 --eval_data_dropout 0.3
           (6 lanes): summary.txt holds three sequences with finite means,
@@ -75,6 +76,21 @@ Phases, one line each, any failure ends the run with a non-zero exit:
   serve_cli  cli.serve on one sequence, then on the three as sessions: both
           JSON reports printed as they come, the JAX package's report keys,
           p50 under 1,000 ms, K1 10 launches a step (warm-up included)
+  train_cli  cli.train on the flagship's train configuration (B=16, frozen
+          encoder, frame dropout 0.3 +- 0.1, eval dropout 0.3, K3 on the
+          trunk) over the tree's sequences 05 and 07, evaluated on 10 after
+          every epoch: two epochs in one run, then epoch 0 and a run resumed
+          from its checkpoints directory for epoch 1. K3 9 launches a step,
+          K1 10 a window step of the evaluation, from the loader's batches
+          and the evaluation's partitions; the split run's epoch_001 (model,
+          optimizer, step, generator) equal to the continuous run's bit for
+          bit, and restored into a fresh state on the card bit for bit.
+          Prints each epoch's wall seconds, step p50, trained frame pairs/s,
+          eval frames/s, losses, t_rel, and the peak memory
+  train_cli_cde  one epoch of cli.train --model_type cde the same way: K2
+          once a window of the evaluation and never in a train step, K1
+          never, finite losses, truncated solves by step; then two rde
+          train steps at B=16 (make_train_step): 9 K3 launches each, no K2
   kernel_dropout  K3 fused_dropout against its plain PyTorch version, bit
           for bit (torch.equal), forward and backward (the autograd
           Function with the kernel and with the plain version): the nine
@@ -110,6 +126,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import logging
 import math
 import os
 import re
@@ -128,6 +145,7 @@ import torch.nn.functional as F
 from ode_vio_tpu_torch.cli.flags import build_parser, config_from_args
 from ode_vio_tpu_torch.cli.serve import main as serve_main
 from ode_vio_tpu_torch.cli.test import main as cli_test_main
+from ode_vio_tpu_torch.cli.train import main as train_main
 from ode_vio_tpu_torch.config import flagship_config
 from ode_vio_tpu_torch.data import native_loader
 from ode_vio_tpu_torch.data.evaluation import METRICS, EvalPartition, KittiEvaluator
@@ -140,6 +158,7 @@ from ode_vio_tpu_torch.ops.interpolation import make_path
 from ode_vio_tpu_torch.ops.mlp import cde_func_sizes, init_mlp, ode_func_sizes
 from ode_vio_tpu_torch.ops.solvers import get_tableau, odeint
 from ode_vio_tpu_torch.serving import StreamingEngine
+from ode_vio_tpu_torch.training.checkpoint import CheckpointManager
 from ode_vio_tpu_torch.training.loop import create_train_state, make_infer_fn, make_train_step
 from ode_vio_tpu_torch.utils import geometry
 
@@ -1254,6 +1273,17 @@ def eval_stream(dev, root) -> dict:
         if seq_diff > EVAL_POSE_ATOL or plain_diff > EVAL_POSE_ATOL:
             raise AssertionError(f"eval_stream dropout {dropout}: batched vs sequential "
                                  f"{seq_diff}, kernel vs plain {plain_diff} (> {EVAL_POSE_ATOL})")
+    # the same weights with float32 encoders: how much of the batched vs
+    # sequential gap the bf16 convolutions make (printed, not bounded)
+    f32 = make_infer_fn(meta_model(cfg, compute_dtype="float32"), model.state_dict(),
+                        fold_bn=True, device=dev)
+    launches["eval_f32"] = 0
+    for dropout in EVAL_DROPOUTS:
+        _, poses_b, n_b = stream(f32, root, cfg, dropout, True, "eval_f32_batched", per_step)
+        _, poses_s, n_s = stream(f32, root, cfg, dropout, False, "eval_f32_sequential", per_step)
+        launches["eval_f32"] += n_b + n_s
+        runs[str(dropout)]["batched_vs_sequential_f32"] = max(
+            float(np.abs(a - b).max()) for a, b in zip(poses_b, poses_s))
     phase("eval_stream", pose_atol=EVAL_POSE_ATOL, launches=launches, runs=runs,
           profile=profile_eval(infer, root, cfg))
     return {"model": model, "launches": launches}
@@ -1358,6 +1388,204 @@ def serve_cli(dev, work: Path, root, pth: Path) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The training command line
+# ---------------------------------------------------------------------------
+
+TRAIN_SEQS, TRAIN_VAL_SEQS = ("05", "07"), ("10",)
+
+
+def train_cli_flags(root, save: Path, dev, epochs: int, model_type: str = "ode-rnn") -> list:
+    """cli.train's flags for the flagship's train configuration (B=16,
+    frozen encoder, frame dropout 0.3 +- 0.1 in training and 0.3 in the
+    evaluation, K3 on the trunk) with ``model_type``'s core, ``epochs``
+    epochs, a checkpoint every epoch."""
+    cfg = train_config()
+    d, t = cfg.data, cfg.train
+    flags = ["--data_dir", str(root), "--save_dir", str(save), "--device", str(dev),
+             *model_flags(cfg), "--model_type", model_type,
+             "--train_seq", *TRAIN_SEQS, "--val_seq", *TRAIN_VAL_SEQS,
+             "--batch_size", str(t.batch_size), "--freeze_encoder",
+             "--data_dropout", str(d.data_dropout), "--data_dropout_std", str(d.data_dropout_std),
+             "--eval_data_dropout", str(d.eval_data_dropout), "--seed", str(SEED),
+             "--epochs_warmup", str(epochs), "--epochs_joint", "0", "--epochs_fine", "0",
+             "--ckpt_every", "1"]
+    parsed = config_from_args(build_parser().parse_args(flags))
+    want = dataclasses.replace(cfg.model, model_type=model_type)
+    if (parsed.model, parsed.solver, parsed.train.freeze_encoder, parsed.data.data_dropout,
+            parsed.data.data_dropout_std, parsed.data.eval_data_dropout) != (
+            want, cfg.solver, True, d.data_dropout, d.data_dropout_std, d.eval_data_dropout):
+        raise AssertionError(f"train_cli: the flags build {parsed}, not the flagship's")
+    return flags
+
+
+def train_cli_counts(flags, epochs) -> tuple:
+    """cli.train's batches in each of ``epochs`` and its evaluation's window
+    steps (one sequence: one window a step), from the loader and the
+    partitions the command line builds."""
+    from ode_vio_tpu_torch.cli.train import get_train_loader
+
+    cfg = config_from_args(build_parser().parse_args(flags))
+    quiet = logging.getLogger("chip_smoke.counts")
+    steps = [len(get_train_loader(cfg, e, quiet)) for e in epochs]
+    evals = [len(EvalPartition(cfg.data.data_dir, cfg.data.val_seq[0], cfg.data.seq_len,
+                               (cfg.model.img_h, cfg.model.img_w), cfg.data.eval_data_dropout,
+                               np.random.default_rng(cfg.train.seed + 7919 + e)))
+             for e in epochs]
+    return steps, evals
+
+
+def epoch_report(cfg, timing) -> list:
+    """Per epoch: wall seconds of training and evaluation, the steps with
+    their p50 (the run's first step left out), trained frame pairs per
+    second at that p50, eval frames per second, loss, t_rel, truncated
+    solves by step."""
+    out, first = [], True
+    for e in timing["epochs"]:
+        ms = [s["s"] * 1e3 for s in e["steps"]][1 if first else 0:]
+        first = False
+        p50 = statistics.median(ms)
+        ev = e["eval_timing"]
+        out.append({"epoch": e["epoch"], "train_s": e["train_s"], "eval_s": e["eval_s"],
+                    "steps": len(e["steps"]), "p50_step_ms": p50,
+                    "frame_pairs_per_s": cfg.train.batch_size * (cfg.model.seq_len - 1) / p50 * 1e3,
+                    "eval_frames_per_s": ev["frames"] / ev["wall_s"],
+                    "eval_decode_wait_share": ev["decode_wait_s"] / ev["wall_s"],
+                    "loss": e["loss"], "t_rel": e["t_rel"], "r_rel": e["r_rel"],
+                    "solver_incomplete_by_step": [s["solver_incomplete"] for s in e["steps"]],
+                    "eval_incomplete": e["eval_incomplete"]})
+        if not math.isfinite(e["loss"]) or not all(math.isfinite(s["loss"]) for s in e["steps"]):
+            raise AssertionError(f"train_cli: epoch {e['epoch']} losses {e['loss']}")
+    return out
+
+
+def tensor_gaps(a, b, path="") -> dict:
+    """{path: largest |a - b|} of every tensor of two nested checkpoints
+    that differs (non-tensor leaves: path -> both values)."""
+    if isinstance(a, torch.Tensor):
+        if a.shape == b.shape and torch.equal(a.cpu(), b.cpu()):
+            return {}
+        d = (a.cpu().double() - b.cpu().double()).abs().max() if a.shape == b.shape else math.inf
+        return {path: float(d)}
+    if isinstance(a, dict):
+        return {k: v for key in a for k, v in tensor_gaps(a[key], b.get(key), f"{path}.{key}").items()}
+    if isinstance(a, (list, tuple)):
+        return {k: v for i, (x, y) in enumerate(zip(a, b))
+                for k, v in tensor_gaps(x, y, f"{path}[{i}]").items()}
+    return {} if a == b else {path: [a, b]}
+
+
+def run_train_cli(name: str, args: list, steps: list, evals: list, k1_per_eval: int,
+                  k2_per_eval: int) -> tuple:
+    """cli.train with the launch counts set to 0 just before and read just
+    after: K3 9 a step, K1 and K2 as given per eval window."""
+    cuda_kernels.reset_launch_counts()          # this path's run starts here
+    timing = {}
+    t = time.perf_counter()
+    train_main(args, timing=timing)
+    wall = time.perf_counter() - t
+    got = {k: getattr(cuda_kernels, k).launches
+           for k in ("fused_dropout", "fused_ode_solve", "fused_cde_solve")}
+    check_launches(f"{name} K3", got["fused_dropout"], 9 * sum(steps))
+    check_launches(f"{name} K1", got["fused_ode_solve"], k1_per_eval * sum(evals))
+    check_launches(f"{name} K2", got["fused_cde_solve"], k2_per_eval * sum(evals))
+    if [len(e["steps"]) for e in timing["epochs"]] != steps:
+        raise AssertionError(f"{name}: steps {[len(e['steps']) for e in timing['epochs']]}, "
+                             f"expected {steps}")
+    return timing, wall, got
+
+
+def train_cli(dev, work: Path, root) -> dict:
+    """cli.train on the flagship at B=16 over the synthetic tree: two
+    epochs in one run, then epoch 0 and a run resumed from its checkpoints
+    directory for epoch 1; the two epoch_001 checkpoints compared, and the
+    split run's restored into a fresh state on the card bit for bit.
+    Returns K3's and K1's launches on each run."""
+    cfg = train_config()
+    per_eval = cfg.model.seq_len - 1           # K1: one launch a frame interval
+    save = work / "train_cli"
+    flags = train_cli_flags(root, save, dev, epochs=2)
+    steps, evals = train_cli_counts(flags, (0, 1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cont, cont_s, n_cont = run_train_cli("train_cli", ["--experiment_name", "cont", *flags],
+                                         steps, evals, per_eval, 0)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    split_dir = save / "split" / "checkpoints"
+    split0, split0_s, n_split0 = run_train_cli(
+        "train_cli_split", ["--experiment_name", "split", *flags, "--epochs_warmup", "1"],
+        steps[:1], evals[:1], per_eval, 0)
+    split1, split1_s, n_split1 = run_train_cli(
+        "train_cli_resume", ["--experiment_name", "split", *flags, "--pretrain", str(split_dir)],
+        steps[1:], evals[1:], per_eval, 0)
+    a = CheckpointManager(save / "cont" / "checkpoints").restore_raw("epoch_001")
+    b = CheckpointManager(split_dir).restore_raw("epoch_001")
+    gaps = tensor_gaps(a, b)
+    # the round trip on the card: epoch_001 restored into a fresh state
+    state = create_train_state(cfg, create_model(cfg, seed=SEED + 5, device=dev, train=True),
+                               device=dev)
+    state = CheckpointManager(split_dir).restore("epoch_001", state)
+    restored = {"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
+                "step": state.step, "generator": state.generator.get_state()}
+    round_trip = tensor_gaps(restored, b)
+    phase("train_cli", batch=cfg.train.batch_size, train_seqs=list(TRAIN_SEQS),
+          val_seqs=list(TRAIN_VAL_SEQS), steps_by_epoch=steps, eval_windows_by_epoch=evals,
+          continuous=epoch_report(cfg, cont), continuous_wall_s=cont_s,
+          split=epoch_report(cfg, split0) + epoch_report(cfg, split1),
+          split_wall_s=[split0_s, split1_s], peak_memory_gib=peak,
+          launches={"continuous": n_cont, "split": n_split0, "resume": n_split1},
+          split_vs_continuous_epoch_001=gaps or "bitwise equal",
+          round_trip=round_trip or "bitwise equal")
+    if round_trip:
+        raise AssertionError(f"train_cli: the restored checkpoint differs: {round_trip}")
+    if gaps:
+        raise AssertionError(f"train_cli: split run's epoch_001 differs from the continuous "
+                             f"run's: {gaps}")
+    del state
+    torch.cuda.empty_cache()
+    k3 = {"train_cli": n_cont["fused_dropout"],
+          "train_cli_split": n_split0["fused_dropout"] + n_split1["fused_dropout"]}
+    k1 = {"train_cli_eval": n_cont["fused_ode_solve"],
+          "train_cli_split_eval": n_split0["fused_ode_solve"] + n_split1["fused_ode_solve"]}
+    return {"k3": k3, "k1": k1}
+
+
+def train_cli_cde(dev, work: Path, root) -> dict:
+    """One epoch of cli.train --model_type cde at full width, evaluated
+    through K2 (one launch a window, none in a train step); then two rde
+    train steps at B=16 through make_train_step, which launch no K2.
+    Returns K2's and K3's launches."""
+    cfg = train_config()
+    flags = train_cli_flags(root, work / "train_cli_cde", dev, epochs=1, model_type="cde")
+    steps, evals = train_cli_counts(flags, (0,))
+    timing, wall, n = run_train_cli("train_cli_cde", ["--experiment_name", "cde", *flags],
+                                    steps, evals, 0, 1)
+    rde = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, model_type="rde"))
+    state = create_train_state(rde, create_model(rde, seed=SEED, device=dev, train=True),
+                               device=dev)
+    step = make_train_step(rde, device=dev)
+    batches = train_batches(rde, 2, dev, SEED)
+    cuda_kernels.reset_launch_counts()          # this path's run starts here
+    rde_rows = []
+    for b in batches:
+        t = time.perf_counter()
+        state, m = step(state, *b)
+        rde_rows.append({"ms": (time.perf_counter() - t) * 1e3, "loss": float(m["loss"]),
+                         "solver_incomplete": int(m["solver_incomplete"])})
+    n_rde = {k: getattr(cuda_kernels, k).launches
+             for k in ("fused_dropout", "fused_ode_solve", "fused_cde_solve")}
+    phase("train_cli_cde", cde=epoch_report(cfg, timing), cde_wall_s=wall, launches=n,
+          eval_windows=evals, rde_steps=rde_rows, rde_launches=n_rde)
+    check_launches("train_rde K3", n_rde["fused_dropout"], 9 * len(batches))
+    check_launches("train_rde K2", n_rde["fused_cde_solve"], 0)
+    if not all(math.isfinite(r["loss"]) for r in rde_rows):
+        raise AssertionError(f"train_rde: losses {rde_rows}")
+    del state
+    torch.cuda.empty_cache()
+    return {"k2": n["fused_cde_solve"], "k3": n["fused_dropout"],
+            "k3_rde": n_rde["fused_dropout"]}
+
+
 def main() -> None:
     seconds = {}
 
@@ -1384,13 +1612,18 @@ def main() -> None:
         cli = timed("eval_cli", eval_cli, dev, work, root, ev.pop("model"))
         torch.cuda.empty_cache()
         serve_launches = timed("serve_cli", serve_cli, dev, work, root, cli["pth"])
+        torch.cuda.empty_cache()
+        tcli = timed("train_cli", train_cli, dev, work, root)
+        tcde = timed("train_cli_cde", train_cli_cde, dev, work, root)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     k1_by_path = {"slice": k1_launches, **ev["launches"], "eval_cli": cli["k1"],
-                  **serve_launches}
+                  **serve_launches, **tcli["k1"]}
     k2_by_path["eval_cli_cde"] = cli["k2"]
+    k2_by_path["train_cli_cde_eval"] = tcde["k2"]
     k3 = timed("kernel_dropout", kernel_dropout_check, dev)
     k3_by_path = timed("train", train_phases, dev)
+    k3_by_path.update(tcli["k3"], train_cli_cde=tcde["k3"], train_rde=tcde["k3_rde"])
     phase("seconds", **seconds)
     print(json.dumps({"kernels": [
         {"name": "fused_ode_solve", "route": "cuda",

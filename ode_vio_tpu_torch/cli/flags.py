@@ -3,7 +3,7 @@
 The port's copy of ``ode_vio_tpu/cli/flags.py``: the same flags under the
 same names and defaults, so a command line reads the same in both
 packages, and ``cli/test.py``, ``cli/serve.py`` and the training command
-line consume one parser. Two flags differ: ``--device`` (default
+line (``cli/train.py``) consume one parser. Two flags differ: ``--device`` (default
 ``cuda``; the port's entry points run on the card unless asked for the
 CPU) and ``--use_kernels`` / ``--no-use_kernels`` in place of
 ``--use_pallas``.
@@ -36,17 +36,13 @@ UNPORTED = {
     "mesh_model": (1, "Queue 1 item 7 (parallel/mesh.py)"),
     "adjoint": (False, "Queue 1 item 2 (the continuous adjoint)"),
     "ode_fixed_step": (False, "Queue 1 item 2 (the fixed-step solvers)"),
-    "pretrain_flownet": (None, "Queue 1 item 5 (the training command line)"),
-    "wandb": (False, "Queue 1 item 5 (the training command line)"),
-    "wandb_group": (None, "Queue 1 item 5 (the training command line)"),
-    "wandb_id": (None, "Queue 1 item 5 (the training command line)"),
-    "print_frequency": (10, "Queue 1 item 5 (the training command line)"),
-    "ckpt_every": (2, "Queue 1 item 5 (the training command line)"),
-    "carry_exposure": (0.0, "Queue 1 item 5 (the carried train step)"),
-    "carry_split": (0, "Queue 1 item 5 (the carried train step)"),
-    "tbptt_chain": (0, "Queue 1 item 5 (the TBPTT train step)"),
+    "carry_exposure": (0.0, "Queue 1 item 5c (the carried train step)"),
+    "carry_split": (0, "Queue 1 item 5c (the carried train step)"),
+    "tbptt_chain": (0, "Queue 1 item 5c (the TBPTT train step)"),
 }
 UNPORTED_MODEL_TYPES = ("rnn", "cfc", "ltc")
+# method strings of the fixed-grid Adams solvers, which are not ported
+ADAMS_METHODS = ("explicit_adams", "implicit_adams")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -58,9 +54,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--save_dir", type=str, default="./results")
     p.add_argument("--experiment_name", type=str, default="experiment")
     p.add_argument("--pretrain", type=str, default=None,
-                   help="reference-layout checkpoint file to evaluate "
-                        "(.pth/.tar/.pt, or the .npz of "
-                        "ode_vio_tpu.cli.export)")
+                   help="reference-layout checkpoint file (.pth/.tar/.pt, or "
+                        "the .npz of ode_vio_tpu.cli.export), or a checkpoints "
+                        "directory written by the port's cli.train (its "
+                        "latest epoch; cli.train resumes from it)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on; 'cpu' runs the kernels' "
                         "plain versions")
@@ -246,6 +243,11 @@ def refuse_unported(args) -> None:
         if getattr(args, name) != unset:
             raise SystemExit(f"--{name} is not ported to ode_vio_tpu_torch "
                              f"yet (ROADMAP.md, {item})")
+    for name in ("ode_solver", "cde_solver"):
+        if getattr(args, name) in ADAMS_METHODS:
+            raise SystemExit(f"--{name} {getattr(args, name)}: the Adams solvers are not "
+                             "ported to ode_vio_tpu_torch yet (ROADMAP.md, Queue 1 item 2 "
+                             "(the fixed-step and Adams solvers))")
     if args.mesh_data not in (-1, 1):
         raise SystemExit("--mesh_data other than 1 is not ported to "
                          "ode_vio_tpu_torch yet (ROADMAP.md, Queue 1 item 7 "
@@ -275,6 +277,7 @@ def config_from_args(args) -> Config:
         save_dir=args.save_dir,
         pretrain=args.pretrain,
         pretrain_flownet=args.pretrain_flownet,
+        wandb=args.wandb,
         run_times=args.run_times,
         model=ModelConfig(
             model_type=args.model_type,
@@ -336,20 +339,22 @@ def config_from_args(args) -> Config:
             freeze_encoder=args.freeze_encoder,
             frozen_encoder_eval=args.frozen_encoder_eval,
             seed=args.seed,
+            print_frequency=args.print_frequency,
+            ckpt_every=args.ckpt_every,
         ),
     )
 
 
 def build_model(cfg: Config, device: torch.device, logger, verb: str):
     """The flags' DeepVIO on ``device``: the seeded init, with the
-    ``--pretrain`` checkpoint file loaded into it where one is given."""
+    ``--pretrain`` checkpoint file or port checkpoints directory loaded
+    into it where one is given."""
     from ode_vio_tpu_torch.models.convert import load_pretrain
     from ode_vio_tpu_torch.models.deepvio import create_model
 
     model = create_model(cfg, seed=cfg.train.seed, device=device)
     if cfg.pretrain:
-        load_pretrain(model, cfg.pretrain)
-        logger.info("loaded reference checkpoint %s", cfg.pretrain)
+        logger.info("loaded checkpoint %s", load_pretrain(model, cfg.pretrain))
     else:
         logger.warning("no --pretrain given: %s random init", verb)
     return model

@@ -1,4 +1,6 @@
 """Evaluation entry point: ``python -m ode_vio_tpu_torch.cli.test --pretrain ...``
+(a reference-layout checkpoint file, or a checkpoints directory of
+``cli.train``)
 
 The port's counterpart of ``ode_vio_tpu/cli/test.py`` (the reference's
 ``scripts/test_model.py:91-153`` protocol): repeats the full streaming
@@ -32,7 +34,7 @@ from ode_vio_tpu_torch.utils.logging_utils import (
 )
 
 
-def write_plots(evaluator: KittiEvaluator, graphs, logger) -> None:
+def write_plots(evaluator: KittiEvaluator, graphs, logger, tag: str = "") -> None:
     """Trajectory plots, or one warning where matplotlib is not installed
     (the summary and pose dumps do not need it)."""
     try:
@@ -41,7 +43,7 @@ def write_plots(evaluator: KittiEvaluator, graphs, logger) -> None:
         logger.warning("matplotlib is not installed: no trajectory plots "
                        "written")
         return
-    evaluator.generate_plots(graphs)
+    evaluator.generate_plots(graphs, tag=tag)
 
 
 def main(argv=None):

@@ -164,14 +164,23 @@ class TrainConfig:
     frozen_encoder_eval: bool = False
     seed: int = 0
     angle_loss_weight: float = 100.0  # loss = 100*MSE(rot) + MSE(trans)
+    print_frequency: int = 10    # cli.train logs every this many steps
+    ckpt_every: int = 2          # cli.train checkpoints every N epochs
+
+    @property
+    def total_epochs(self) -> int:
+        return self.epochs_warmup + self.epochs_joint + self.epochs_fine
 
 
 @dataclass(frozen=True)
 class Config:
     experiment_name: str = "experiment"
     save_dir: str = "./results"
-    pretrain: str | None = None          # reference-layout checkpoint file
+    # a reference-layout checkpoint file, or a directory of the port's
+    # checkpoints (training/checkpoint.py)
+    pretrain: str | None = None
     pretrain_flownet: str | None = None  # torch FlowNet-S weights
+    wandb: bool = False                  # cli.train logs to wandb where installed
     run_times: int = 1                   # eval repetitions (test_model.py:101)
 
     model: ModelConfig = field(default_factory=ModelConfig)

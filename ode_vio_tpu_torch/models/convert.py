@@ -22,13 +22,19 @@ accepts. Layout rules (those of ``ode_vio_tpu/models/convert.py``):
 reference-layout checkpoint file (a torch ``.pth``/``.tar``/``.pt``, or
 the ``.npz`` that ``python -m ode_vio_tpu.cli.export`` writes) is already
 the port's state_dict layout, so it is structure-checked and loaded with
-``strict=True``, nothing converted.
+``strict=True``, nothing converted. A directory of the port's own
+checkpoints (``training/checkpoint.py``, as ``cli.train`` writes them)
+loads its latest epoch, else ``best``, as JAX's ``cli.test`` picks.
+
+:func:`load_flownet` is ``--pretrain_flownet``: a torch FlowNet-S
+state_dict mapped onto ``Image_net.*`` by key intersection (JAX's
+``convert_image_encoder``).
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, List, Mapping
 
 import numpy as np
 import torch
@@ -143,24 +149,67 @@ def check_structure(sd: Mapping[str, torch.Tensor], model: torch.nn.Module) -> N
         f"missing {missing} extra {extra} shape-mismatch {shape}")
 
 
-def load_pretrain(model: torch.nn.Module, path) -> None:
-    """Load a reference-layout checkpoint file into ``model`` (strict).
-    BatchNorm ``num_batches_tracked`` counters, which the JAX package's
-    export leaves out, are taken as 0; inference never reads them."""
+def require_port_checkpoint(ckpt, name: str) -> None:
+    """``SystemExit`` with the ``cli.export`` hint where checkpoint ``name``
+    of ``ckpt`` (a ``CheckpointManager``) is not the port's: a JAX
+    package's checkpoints directory holds Orbax ``epoch_*`` directories."""
+    if not ckpt.path(name).is_file():
+        raise SystemExit(
+            f"--pretrain {ckpt.directory} is a directory without a checkpoint of "
+            f"the port ({name}/state.pt): a JAX (Orbax) TrainState checkpoint, "
+            "which the port cannot read. Convert it with `python -m "
+            "ode_vio_tpu.cli.export --pretrain <dir> --out model.npz` (same "
+            "model flags) and pass the .npz file, or pass a checkpoints "
+            "directory that the port's cli.train wrote (training/checkpoint.py).")
+
+
+def load_pretrain(model: torch.nn.Module, path) -> str:
+    """Load a reference-layout checkpoint file, or the weights of a port
+    checkpoints directory's latest epoch (else ``best``), into ``model``
+    (strict). BatchNorm ``num_batches_tracked`` counters, which the JAX
+    package's export leaves out, are taken as 0; inference never reads
+    them. Returns what was loaded."""
     path = Path(path)
     if path.is_dir():
-        raise SystemExit(
-            f"--pretrain {path} is a directory: a JAX (Orbax) TrainState "
-            "checkpoint, which the port cannot read. Convert it with "
-            "`python -m ode_vio_tpu.cli.export --pretrain <dir> --out "
-            "model.npz` (same model flags) and pass the .npz file. The "
-            "port's own checkpoints come with training/checkpoint.py in the "
-            "training command-line slice (ROADMAP.md, Queue 1 item 5).")
-    if not path.is_file():
+        from ode_vio_tpu_torch.training.checkpoint import CheckpointManager
+
+        ckpt = CheckpointManager(path)
+        latest = ckpt.latest_epoch()
+        name = ckpt.epoch_name(latest) if latest is not None else "best"
+        require_port_checkpoint(ckpt, name)
+        sd = ckpt.restore_raw(name)["model"]
+        path = path / name
+    elif path.is_file():
+        sd = load_reference_file(path)
+    else:
         raise SystemExit(f"--pretrain {path}: no such file")
-    sd = load_reference_file(path)
     for k, v in model.state_dict().items():
         if k.endswith("num_batches_tracked") and k not in sd:
             sd[k] = torch.zeros_like(v, device="cpu")
     check_structure(sd, model)
     model.load_state_dict(sd, strict=True)
+    return str(path)
+
+
+def load_flownet(model: torch.nn.Module, path) -> List[str]:
+    """``--pretrain_flownet``: load a torch FlowNet-S checkpoint into
+    ``model.Image_net`` by key intersection, as the JAX package's
+    ``convert_image_encoder`` does: each trunk block whose conv weight the
+    file holds (with its BatchNorm's weight, bias and running statistics),
+    and ``visual_head`` where present; every other key of the file is
+    ignored. The port's image encoder is in the reference's layout (OIHW
+    convs, the head's inputs in CHW order), so nothing is permuted. Returns
+    the loaded keys."""
+    sd = load_reference_file(path)
+    own = model.Image_net.state_dict()
+    new = {}
+    for name in TRUNK_NAMES:
+        if f"{name}.0.weight" in sd:
+            for k in ("0.weight", "1.weight", "1.bias", "1.running_mean", "1.running_var"):
+                new[f"{name}.{k}"] = sd[f"{name}.{k}"]
+    if "visual_head.weight" in sd:
+        for k in ("visual_head.weight", "visual_head.bias"):
+            new[k] = sd[k]
+    model.Image_net.load_state_dict(
+        {**own, **{k: v.to(own[k].dtype) for k, v in new.items()}}, strict=True)
+    return sorted(new)

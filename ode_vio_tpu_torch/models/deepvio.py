@@ -32,17 +32,23 @@ from ode_vio_tpu_torch.models.pose_rde import PoseRDE
 POSE_CORES = ("ode-rnn", "rnn", "cde", "rde", "cfc", "ltc")
 
 
+def require_ported(model_type: str) -> None:
+    """Raise for a pose core the JAX package lacks (ValueError) or the port
+    lacks (NotImplementedError, naming its ROADMAP.md item)."""
+    if model_type not in POSE_CORES:
+        raise ValueError(f"model_type '{model_type}' not supported; choose from {POSE_CORES}")
+    if model_type in ("rnn", "cfc", "ltc"):
+        raise NotImplementedError(
+            f"the '{model_type}' pose core is not ported yet (ROADMAP.md, "
+            "Queue 1 item 6: other pose cores)")
+
+
 class DeepVIO(nn.Module):
     def __init__(self, cfg: ModelConfig, solver: SolverConfig = SolverConfig(),
                  cde_solver: SolverConfig = SolverConfig(rtol=1e-4, atol=1e-6)):
         super().__init__()
         mt = cfg.model_type
-        if mt not in POSE_CORES:
-            raise ValueError(f"model_type '{mt}' not supported; choose from {POSE_CORES}")
-        if mt in ("rnn", "cfc", "ltc"):
-            raise NotImplementedError(
-                f"the '{mt}' pose core is not ported yet (ROADMAP.md, "
-                "Queue 1 item 6: other pose cores)")
+        require_ported(mt)
         self.cfg = cfg
         self.solver = solver
         self.cde_solver = cde_solver
@@ -78,6 +84,12 @@ class DeepVIO(nn.Module):
         train step): the inertial encoder and the pose core."""
         fi = self.Inertial_net(imu, generator)
         return self.Pose_net(fv, fi, ts, prev=hc, generator=generator)
+
+
+def count_parameters(model: nn.Module) -> int:
+    """The number of trainable weights: the parameters, not the BatchNorm
+    running statistics (the JAX package counts its ``params`` tree)."""
+    return sum(p.numel() for p in model.parameters())
 
 
 def create_model(config: Config, *, seed: int = 0, device="cuda",

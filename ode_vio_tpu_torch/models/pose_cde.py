@@ -1,4 +1,4 @@
-"""PoseCDE, the neural-CDE pose core, inference forward (counterpart of
+"""PoseCDE, the neural-CDE pose core (counterpart of
 ``ode_vio_tpu/models/pose_cde.py``).
 
 The fused features, reduced to ``cde_hidden_dim`` channels and augmented
@@ -16,10 +16,16 @@ feature times, and the states regress to per-step poses. Streaming modes
   have zero length;
 * ``reset``: every window starts fresh.
 
-The solve runs kernel K2 (``ops/cuda_kernels.py::fused_cde_solve``) when
-``use_kernels`` resolves on (auto: CUDA tensors), else the solver core
-(``ops/interpolation.py::cdeint_batched``). Every carry leaf has its lane
-on axis 0.
+In eval mode the solve runs kernel K2 (``ops/cuda_kernels.py::
+fused_cde_solve``) when ``use_kernels`` resolves on (auto: CUDA tensors),
+else the solver core (``ops/interpolation.py::cdeint_batched``). In train
+mode (``self.training``) every window runs the training regime, whatever
+the streaming mode: the window clock ``ts - ts[:, :1]``, z0 from its first
+observation (or the carry given), and the solver core's bounded,
+differentiable solve (budget ``max_steps_train``). K2 has no backward, so
+a training forward never reaches it, on CUDA tensors too (JAX gates its
+fused kernel with ``not train`` alike). Every carry leaf has its lane on
+axis 0.
 """
 
 from __future__ import annotations
@@ -38,16 +44,18 @@ from ode_vio_tpu_torch.ops.solvers.odeint import SolverOptions
 
 
 def cde_solver(field: MLPField, hidden: int, channels: int, kind: str,
-               opts: SolverOptions, use_kernels: bool):
+               solver: SolverConfig, use_kernels: bool, train: bool):
     """``solve(z0, ts, xs, eval_ts) -> (zs, Stats)`` for the field ``g(z) =
     field(z).reshape(hidden, channels)`` on the paths ``make_path(ts, xs,
-    kind)``: kernel K2 or the solver core."""
+    kind)``: with ``train`` the solver core's bounded solve, else kernel K2
+    (``use_kernels``) or the solver core's inference solve."""
     layers = field.layers()
-    if use_kernels:
+    opts = SolverOptions.from_config(solver, train=train)
+    if use_kernels and not train:
         return lambda z0, ts, xs, ev: cdeint_fused(
             layers, field.activation, z0, ts, xs, ev, kind, opts)
     g = lambda z: apply_cde_func(layers, z, field.activation, hidden, channels)  # noqa: E731
-    return lambda z0, ts, xs, ev: cdeint_batched(g, z0, ts, xs, ev, kind, opts)
+    return lambda z0, ts, xs, ev: cdeint_batched(g, z0, ts, xs, ev, kind, opts, train)
 
 
 def solve_stats(stats) -> SolveStats:
@@ -72,7 +80,7 @@ class PoseCDE(nn.Module):
     def __init__(self, cfg: ModelConfig, solver: SolverConfig):
         super().__init__()
         self.cfg = cfg
-        self.opts = SolverOptions.from_config(solver)
+        self.solver = solver
         F, H = cfg.f_len, cfg.cde_hidden_dim
         self.input_dim = H + 1  # reduced features + time
         self.fuse = FusionModule(F, cfg.fuse_method)
@@ -88,20 +96,21 @@ class PoseCDE(nn.Module):
                 generator: Optional[torch.Generator] = None):
         """fv (B, S-1, v_f_len), fi (B, S-1, i_f_len), ts (B, S), prev the
         carry or None. Returns (poses (B, S-1, 6), carry, SolveStats)."""
-        cfg = self.cfg
+        cfg, train = self.cfg, self.training
         x = self.reduction_net(self.fuse(fv, fi, generator))
         ts = ts.float()
-        mode = cfg.cde_streaming_mode
+        mode = "train" if train else cfg.cde_streaming_mode
         if mode == "reset":
             prev = None
         history = mode == "history"
-        # history mode keeps one clock for the whole buffer
-        ts_eff = ts if history or prev is not None else ts - ts[:, :1]
+        # history mode keeps one clock for the whole buffer; training and
+        # a cold start run on the window's own clock
+        ts_eff = ts if history or (prev is not None and not train) else ts - ts[:, :1]
         knots = ts_eff[:, 1:]                                   # (B, S-1)
         obs = torch.cat([knots[..., None], x], dim=-1)          # (B, S-1, H+1)
         solve = cde_solver(self.cde_func, cfg.cde_hidden_dim, self.input_dim,
-                           cfg.cde_interpolation, self.opts,
-                           cfg.resolved_use_kernels(obs.device))
+                           cfg.cde_interpolation, self.solver,
+                           cfg.resolved_use_kernels(obs.device), train)
         if history:
             return self._history_step(obs, prev, solve)
         z0 = torch.tanh(self.initial(obs[:, 0])) if prev is None else prev

@@ -1,5 +1,5 @@
 """PoseRDE, the neural rough-differential-equation pose core (log-ODE
-method), inference forward (counterpart of ``ode_vio_tpu/models/pose_rde.py``).
+method) (counterpart of ``ode_vio_tpu/models/pose_rde.py``).
 
 The fused features are reduced to ``rde_reduced_dim`` channels and
 augmented with their times; the path is compressed into depth-2
@@ -9,7 +9,9 @@ the window's feature times. Streaming modes (``rde_streaming_mode``) as
 for PoseCDE; in ``history`` mode the ring buffer holds compressed-path
 knots, appended as a running sum of the windows' log-signatures so that
 the buffered path stays continuous. The solve runs kernel K2 or the
-solver core, as in PoseCDE. Every carry leaf has its lane on axis 0.
+solver core, and train mode runs the training regime through the bounded
+solve and never K2, as in PoseCDE. Every carry leaf has its lane on
+axis 0.
 """
 
 from __future__ import annotations
@@ -25,7 +27,6 @@ from ode_vio_tpu_torch.models.fusion import FusionModule
 from ode_vio_tpu_torch.models.pose_cde import cde_solver, collapse_prefix, solve_stats
 from ode_vio_tpu_torch.ops.logsig import logsig_dim, logsig_windows
 from ode_vio_tpu_torch.ops.mlp import cde_func_sizes
-from ode_vio_tpu_torch.ops.solvers.odeint import SolverOptions
 
 
 class PoseRDE(nn.Module):
@@ -34,7 +35,7 @@ class PoseRDE(nn.Module):
     def __init__(self, cfg: ModelConfig, solver: SolverConfig):
         super().__init__()
         self.cfg = cfg
-        self.opts = SolverOptions.from_config(solver)
+        self.solver = solver
         F, H = cfg.f_len, cfg.cde_hidden_dim
         d = cfg.rde_reduced_dim + 1  # + time
         self.sig_dim = logsig_dim(d, cfg.logsig_depth)
@@ -54,18 +55,18 @@ class PoseRDE(nn.Module):
                 generator: Optional[torch.Generator] = None):
         """fv (B, S-1, v_f_len), fi (B, S-1, i_f_len), ts (B, S), prev the
         carry or None. Returns (poses (B, S-1, 6), carry, SolveStats)."""
-        cfg = self.cfg
+        cfg, train = self.cfg, self.training
         x = self.reduction_net(self.fuse(fv, fi, generator))
         ts = ts.float()
-        mode = cfg.rde_streaming_mode
+        mode = "train" if train else cfg.rde_streaming_mode
         if mode == "reset":
             prev = None
         history = mode == "history"
-        ts_eff = ts if history or prev is not None else ts - ts[:, :1]
+        ts_eff = ts if history or (prev is not None and not train) else ts - ts[:, :1]
         knots = ts_eff[:, 1:]                                   # (B, S-1)
         obs = torch.cat([knots[..., None], x], dim=-1)          # (B, S-1, d)
         solve = cde_solver(self.cde_func, cfg.cde_hidden_dim, self.sig_dim, "linear",
-                           self.opts, cfg.resolved_use_kernels(obs.device))
+                           self.solver, cfg.resolved_use_kernels(obs.device), train)
         if history:
             return self._history_step(obs, knots, prev, solve)
         z0 = torch.tanh(self.initial(obs[:, 0])) if prev is None else prev

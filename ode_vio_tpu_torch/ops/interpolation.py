@@ -8,9 +8,10 @@ shape ``(...)``, one time per path, and pick each path's segment as
 ``clip(searchsorted(ts, t, 'right') - 1, 0, T-2)``.
 
 The CDE ``dz = g(z) dX(t)`` reduces to the ODE ``z' = g(z) @ X'(t)``,
-solved per row on the port's solver core (``while`` mode). The adjoint
-and bounded modes of the JAX module belong to training and are not
-ported yet.
+solved per row on the port's solver core: the inference solve (``while``
+mode) or, for training, the bounded differentiable solve (``bounded``
+mode, ``solve_ivp_batched_dt``). The adjoint mode of the JAX module is
+not ported yet (ROADMAP.md, Queue 1 item 2).
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from ode_vio_tpu_torch.ops.solvers.odeint import SolverOptions, Stats, solve_ivp_dt
+from ode_vio_tpu_torch.ops.solvers.odeint import (SolverOptions, Stats, solve_ivp_batched_dt,
+                                                  solve_ivp_dt)
 
 
 class InterpolatedPath(NamedTuple):
@@ -96,36 +98,43 @@ def make_path(ts, xs, kind: str = "linear") -> InterpolatedPath:
 
 def cdeint_path(func: Callable[[torch.Tensor], torch.Tensor], z0: torch.Tensor,
                 path: InterpolatedPath, eval_ts: torch.Tensor,
-                opts: SolverOptions = SolverOptions()):
+                opts: SolverOptions = SolverOptions(), bounded: bool = False):
     """Solve ``dz = func(z) dX(t)`` for every row of ``z0`` (B, H) on its
     own path (``path.ts`` (B, T)) through ``[path.ts[:, 0]] + eval_ts``
     (B, E), segment by segment: each segment a fresh solve with its own
     ``max_steps`` budget, the step size carried over from the previous
     one (``opts.dt0`` at the start). ``func(z)`` is (B, H, C).
+    ``bounded``: each segment is the training solve
+    (``solve_ivp_batched_dt``: an early-exit check per ``exit_chunk``
+    steps, recorded by autograd), else the inference solve.
 
     Returns ``(zs (B, E, H), dt_final (B,), Stats)`` with the per-row
-    counts summed over segments: the counterpart of ``cdeint_batched`` in
-    ``while`` mode, plus the last step proposal.
+    counts summed over segments: the counterpart of ``cdeint_batched``,
+    plus the last step proposal.
     """
     def field(t, z):
         return (func(z) @ path.derivative(t)[..., None])[..., 0]
 
+    solve = solve_ivp_batched_dt if bounded else solve_ivp_dt
     seg_t0 = torch.cat([path.ts[:, :1], eval_ts[:, :-1]], dim=1)
     z = z0
     dt = torch.full((z0.shape[0],), opts.dt0, dtype=torch.float32, device=z0.device)
     zs, acc, rej, inc = [], 0, 0, 0
     for j in range(eval_ts.shape[1]):
-        z, dt, st = solve_ivp_dt(field, z, seg_t0[:, j], eval_ts[:, j], opts, dt)
+        z, dt, st = solve(field, z, seg_t0[:, j], eval_ts[:, j], opts, dt)
         zs.append(z)
         acc, rej, inc = acc + st.accepted, rej + st.rejected, inc + st.incomplete
     return torch.stack(zs, dim=1), dt, Stats(acc, rej, inc)
 
 
 def cdeint_batched(func, z0, ts, xs, eval_ts, kind: str,
-                   opts: SolverOptions = SolverOptions()):
+                   opts: SolverOptions = SolverOptions(), bounded: bool = False):
     """:func:`cdeint_path` on the paths ``make_path(ts, xs, kind)``, ts
-    (B, T), xs (B, T, C). Returns ``(zs (B, E, H), Stats)``."""
-    zs, _, stats = cdeint_path(func, z0, make_path(ts, xs, kind), eval_ts, opts)
+    (B, T), xs (B, T, C): JAX's ``cdeint_batched`` in ``while`` mode, or
+    with ``bounded`` in ``bounded`` mode (training; gradients reach
+    ``z0``, ``xs`` and the field's weights). Returns ``(zs (B, E, H),
+    Stats)`` with per-row (B,) counts summed over segments."""
+    zs, _, stats = cdeint_path(func, z0, make_path(ts, xs, kind), eval_ts, opts, bounded)
     return zs, stats
 
 

@@ -62,7 +62,7 @@ class SolverOptions:
         if train and cfg.unroll_mode == "adjoint":
             raise NotImplementedError(
                 "the continuous adjoint is not ported yet (ROADMAP.md, Queue 1 "
-                "item 5); train with unroll_mode='bounded'")
+                "item 2); train with unroll_mode='bounded'")
         return cls(
             method=cfg.method, rtol=cfg.rtol, atol=cfg.atol, dt0=cfg.dt0,
             max_steps=cfg.max_steps_train if train else cfg.max_steps,

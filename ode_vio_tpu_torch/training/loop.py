@@ -13,11 +13,13 @@ statistics, trunk dropout through kernel K3), so autograd records none of
 it; with ``frozen_encoder_eval`` on top it runs its BatchNorm-folded
 inference graph instead. Every random draw of a step (one key per trunk
 dropout site, the Bernoulli masks, hard fusion's noise) comes from the
-train state's ``torch.Generator``.
+train state's ``torch.Generator``. The step trains the ode-rnn, cde and
+rde pose cores; the cde/rde cores integrate through the bounded,
+differentiable CDE solve and never through kernel K2.
 
-Not ported yet (ROADMAP.md, Queue 1 item 5): the carried step
-(``carry=True``), ``make_streaming_train_step``, checkpointing, and
-training the cde/rde cores.
+Not ported yet (ROADMAP.md, Queue 1 item 5c): the carried step
+(``carry=True``) and ``make_streaming_train_step``. Checkpoints are
+``training/checkpoint.py``.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import numpy as np
 import torch
 
 from ode_vio_tpu_torch.config import Config, resolve_device
-from ode_vio_tpu_torch.models.deepvio import DeepVIO
+from ode_vio_tpu_torch.models.deepvio import DeepVIO, require_ported
 from ode_vio_tpu_torch.models.encoders import ImageEncoder
 from ode_vio_tpu_torch.models.fold import fold_batchnorm_into_bias
 
@@ -119,6 +121,19 @@ class Optimizer:
         for p in self.params:
             p.grad = None
 
+    def state_dict(self) -> dict:
+        """What a resumed run needs: the inner optimizer's state (moments,
+        step counts, groups), the accumulation position and its running
+        mean."""
+        return {"inner": self.inner.state_dict(), "mini_step": self.mini_step,
+                "mean": self._mean}
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.inner.load_state_dict(sd["inner"])
+        self.mini_step = sd["mini_step"]
+        self._mean = None if sd["mean"] is None else [
+            m.to(p.device) for m, p in zip(sd["mean"], self.params)]
+
 
 def set_learning_rate(optimizer: Optimizer, lr: float, group: str = "train") -> Optimizer:
     """Set one param group's learning rate (the epoch schedule sets the
@@ -159,13 +174,11 @@ def make_train_step(cfg: Config, *, device="cuda") -> Callable:
     (B, S, H, W, 3), imu (B, 10*(S-1)+1, 6), gts (B, S-1, 6), ts (B, S).
     ``metrics`` holds device tensors: ``loss``, ``angle_loss``,
     ``trans_loss``, ``grad_norm`` (of this step's unclipped gradients) and
-    ``solver_incomplete`` (solves that ran out of ``max_steps_train``).
+    ``solver_incomplete`` (solves that ran out of ``max_steps_train``:
+    per layer and frame interval for ode-rnn, per segment for cde/rde).
     Beyond the solver's early-exit checks nothing waits for the device."""
     device = resolve_device(device)
-    if cfg.model.model_type != "ode-rnn":
-        raise NotImplementedError(
-            f"training the '{cfg.model.model_type}' pose core is not ported yet "
-            "(ROADMAP.md, Queue 1 item 5)")
+    require_ported(cfg.model.model_type)
     t = cfg.train
     frozen_eval = t.freeze_encoder and t.frozen_encoder_eval and not cfg.model.skip_bn
     if frozen_eval:

@@ -37,8 +37,9 @@ from ode_vio_tpu_torch.ops.mlp import apply_cde_func
 from ode_vio_tpu_torch.ops.solvers import SolverOptions
 from ode_vio_tpu_torch.serving import StreamingEngine
 
-from torch_port_helpers import S, configs, jax_model, window
+from torch_port_helpers import S, configs, jax_model, one_torch_thread, window  # noqa: F401
 
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 SOLVE_RTOL, SOLVE_ATOL = 3e-5, 3e-6
 KW = dict(rtol=1e-3, atol=1e-6, dt0=1e-2, max_steps=64)
 CDE_TINY = dict(cde_hidden_dim=8, cde_fn_num_layers=2, rde_reduced_dim=4)

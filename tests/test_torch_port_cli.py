@@ -4,7 +4,7 @@ the JAX package's ``cli.test``, both given the same reference-layout
 ``cli.serve`` single- and multi-session with the JAX package's report
 keys; the plot command line; and the readable exits: a checkpoint of
 another ``--model_type``, a JAX checkpoint directory, and every flag whose
-feature the port does not have yet."""
+feature the port does not have yet (in ``cli.train`` too)."""
 
 import re
 import sys
@@ -19,6 +19,7 @@ from ode_vio_tpu_torch.cli import flags
 from ode_vio_tpu_torch.cli.plot import main as plot_main
 from ode_vio_tpu_torch.cli.serve import main as serve_main
 from ode_vio_tpu_torch.cli.test import main as cli_test_main
+from ode_vio_tpu_torch.cli.train import main as train_main
 from ode_vio_tpu_torch.utils import geometry as geo
 
 from torch_port_helpers import configs, jax_model
@@ -149,14 +150,19 @@ UNPORTED_ARGS.update({
     "model_type_rnn": ["--model_type", "rnn"],
     "model_type_cfc": ["--model_type", "cfc"],
 })
+# the Adams method strings, which the JAX package runs as fixed-grid Adams
+UNPORTED_ARGS.update({f"{flag}_{method}": [f"--{flag}", method]
+                      for flag in ("ode_solver", "cde_solver")
+                      for method in flags.ADAMS_METHODS})
 
 
 @pytest.mark.parametrize("name", sorted(UNPORTED_ARGS))
 def test_unported_flag_exits(setup, name):
     """Every unported flag raises SystemExit naming its ROADMAP.md item,
-    before any work is done."""
+    before any work is done, in every command line."""
     _, _, _, common = setup
-    for main in (cli_test_main, serve_main):
-        with pytest.raises(SystemExit, match="ROADMAP.md"):
+    item = "Queue 1 item 2" if "adams" in name else "ROADMAP.md"
+    for main in (cli_test_main, serve_main, train_main):
+        with pytest.raises(SystemExit, match=item):
             main(["--experiment_name", "unported", "--device", "cpu", *common,
                   *UNPORTED_ARGS[name]])

@@ -214,3 +214,83 @@ def test_eval_stream_kernel_matches_solver_core_on_gpu(tmp_path):
         poses.append(np.stack(log))               # (window steps, lanes, S-1, 6)
     assert launches == [len(poses[0]) * (seq_len - 1), 0]
     np.testing.assert_allclose(poses[0], poses[1], rtol=0, atol=1e-3)
+
+
+TINY_TRAIN = dict(img_h=32, img_w=64, seq_len=4, v_f_len=32, i_f_len=16, ode_hidden_dim=16,
+                  cde_hidden_dim=8, cde_fn_num_layers=2, compute_dtype="float32")
+
+
+@pytest.mark.gpu
+def test_cde_train_step_launches_no_k2_on_gpu():
+    """A tiny cde train step on the card: finite loss, the trunk's dropout
+    through K3, and no K2 launch; the same model's eval forward launches
+    K2 once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from ode_vio_tpu_torch.config import Config, ModelConfig, TrainConfig
+    from ode_vio_tpu_torch.models.deepvio import create_model
+    from ode_vio_tpu_torch.training.loop import create_train_state, make_train_step
+
+    cfg = Config(model=ModelConfig(model_type="cde", **TINY_TRAIN),
+                 train=TrainConfig(batch_size=2, freeze_encoder=True))
+    model = create_model(cfg, seed=0, train=True)
+    state = create_train_state(cfg, model)
+    gen = torch.Generator("cuda").manual_seed(0)
+    img = torch.rand((2, 4, 32, 64, 3), generator=gen, device="cuda") - 0.5
+    imu = torch.randn((2, 31, 6), generator=gen, device="cuda")
+    gts = 0.1 * torch.randn((2, 3, 6), generator=gen, device="cuda")
+    ts = torch.cumsum(0.08 + 0.05 * torch.rand((2, 4), generator=gen, device="cuda"), 1)
+    cuda_kernels.reset_launch_counts()
+    state, m = make_train_step(cfg)(state, img, imu, gts, ts)
+    assert np.isfinite(float(m["loss"]))
+    assert cuda_kernels.fused_cde_solve.launches == 0
+    assert cuda_kernels.fused_dropout.launches == 9
+    with torch.no_grad():
+        state.model.eval()(img, imu, ts)
+    assert cuda_kernels.fused_cde_solve.launches == 1
+
+
+@pytest.mark.gpu
+def test_cli_train_checkpoint_restores_bitwise_on_gpu(tmp_path):
+    """One tiny cli.train epoch on the card (K3 in the steps, K1 in the
+    evaluation), its epoch_000 restored into a fresh state on the card:
+    model, optimizer, step and generator bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from ode_vio_tpu_torch.cli.flags import build_parser, config_from_args
+    from ode_vio_tpu_torch.cli.train import main as train_main
+    from ode_vio_tpu_torch.data.synthetic import make_kitti_tree
+    from ode_vio_tpu_torch.models.deepvio import create_model
+    from ode_vio_tpu_torch.training.checkpoint import CheckpointManager
+    from ode_vio_tpu_torch.training.loop import create_train_state
+
+    root = make_kitti_tree(tmp_path / "kitti", seqs=("05", "07"), n_frames=24, img_hw=(32, 64),
+                           speed_scale=50.0)
+    flags = ["--data_dir", str(root), "--save_dir", str(tmp_path / "results"),
+             "--experiment_name", "gpu", "--img_w", "64", "--img_h", "32", "--seq_len", "4",
+             "--v_f_len", "32", "--i_f_len", "16", "--ode_hidden_dim", "16",
+             "--compute_dtype", "float32", "--batch_size", "4", "--train_seq", "05",
+             "--val_seq", "07", "--epochs_warmup", "1", "--epochs_joint", "0",
+             "--epochs_fine", "0", "--freeze_encoder", "--workers", "2"]
+    cuda_kernels.reset_launch_counts()
+    train_main(flags)
+    assert cuda_kernels.fused_dropout.launches > 0 and cuda_kernels.fused_ode_solve.launches > 0
+    ckpt = CheckpointManager(tmp_path / "results" / "gpu" / "checkpoints")
+    raw = ckpt.restore_raw("epoch_000")
+    cfg = config_from_args(build_parser().parse_args(flags))
+    state = ckpt.restore("epoch_000", create_train_state(
+        cfg, create_model(cfg, seed=3, train=True), seed=9))
+
+    def same(a, b):
+        if isinstance(a, torch.Tensor):
+            return torch.equal(a.cpu(), b.cpu())
+        if isinstance(a, dict):
+            return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+        if isinstance(a, (list, tuple)):
+            return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+        return a == b
+
+    assert same(state.model.state_dict(), raw["model"])
+    assert same(state.optimizer.state_dict(), raw["optimizer"])
+    assert state.step == raw["step"] > 0
+    assert same(state.generator.get_state(), raw["generator"])

@@ -146,7 +146,7 @@ def test_cde_and_rde_models_default_to_cuda(model_type):
         StreamingEngine(model, max_sessions=2)
 
 
-@pytest.mark.parametrize("command", ["test", "serve"])
+@pytest.mark.parametrize("command", ["test", "serve", "train"])
 def test_command_lines_default_to_cuda(command):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is valid here")

@@ -40,8 +40,9 @@ from ode_vio_tpu_torch.ops.mlp import apply_mlp
 from ode_vio_tpu_torch.ops.solvers import SolverOptions, odeint, solve_ivp_batched_dt
 from ode_vio_tpu_torch.training import loop as tloop
 
-from torch_port_helpers import randomize_batchnorm
+from torch_port_helpers import one_torch_thread, randomize_batchnorm  # noqa: F401
 
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 B, S, H, W = 4, 3, 32, 64
 TINY = dict(model_type="ode-rnn", img_w=W, img_h=H, seq_len=S, v_f_len=32, i_f_len=16,
             ode_hidden_dim=16, rnn_num_layers=2, ode_activation_fn="softplus",
@@ -623,6 +624,8 @@ def test_port_same_seed_same_loss(variables, trained):
 
 
 def test_train_step_refuses_other_pose_cores():
-    _, tc = configs({"model_type": "cde", "cde_hidden_dim": 8})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """A pose core the port lacks (rnn) is refused, naming its ROADMAP
+    item; cde and rde train (tests/test_torch_port_train_cde.py)."""
+    _, tc = configs({"model_type": "rnn"})
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 6"):
         tloop.make_train_step(tc, device="cpu")

@@ -1,9 +1,12 @@
 """Shared fixtures of the PyTorch-port parity tests (tests/test_torch_port_*):
 one tiny model configuration built in both packages, seeded JAX variables
-with non-trivial BatchNorm statistics, and numpy windows."""
+with non-trivial BatchNorm statistics, numpy windows, and a fixture that
+runs torch on one thread."""
 
 import jax
 import numpy as np
+import pytest
+import torch
 
 from ode_vio_tpu import config as jcfg
 from ode_vio_tpu.models.deepvio import init_model
@@ -62,3 +65,16 @@ def window(seed, t0=0.0, s=S, h=H, w=W):
 def batch(seeds, **kw):
     wins = [window(sd, **kw) for sd in seeds]
     return tuple(np.stack([w[k] for w in wins]) for k in range(3))
+
+
+@pytest.fixture(scope="module", autouse=False)
+def one_torch_thread():
+    """torch on one intra-op thread for a module's tests. Their tiny shapes
+    gain nothing from the thread pool, and with the suite's parallel
+    workers on every core each op waits for a descheduled thread: a
+    cli.train split-run test took 25 s on one thread and over 90 s on
+    eight, beside seven busy processes on an 8-core host."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
