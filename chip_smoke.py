@@ -91,6 +91,28 @@ Phases, one line each, any failure ends the run with a non-zero exit:
           once a window of the evaluation and never in a train step, K1
           never, finite losses, truncated solves by step; then two rde
           train steps at B=16 (make_train_step): 9 K3 launches each, no K2
+  train_tbptt  cli.train --model_type cde --tbptt_chain 8 for one epoch on
+          two 200-frame training sequences it writes into the tree at
+          256x512 (20 chain chunks: one group of 16 lanes, 8 steps),
+          evaluated on sequence 10: K3 9 a step, K2 once a window of the
+          evaluation and never in a step, K1 never; no carry at the chain's
+          start and one on every other step; each step's peak memory, the
+          chain's last no higher than its second's (+1 %). Prints the
+          chunks, the cold and carried step p50 and the epoch's report
+  train_carry  cli.train --carry_exposure: one cde epoch at 0.2 (K2 only in
+          the evaluation), and the ode-rnn split run at 0.5 whose epoch_001
+          must equal the continuous run's bit for bit (the exposure's draws
+          come from the seed and the epoch); then 3 fresh and 3 carried
+          make_train_step steps each of ode-rnn and rde at B=16 (9 K3
+          launches a step either way, no K1, no K2), their p50 compared
+  cores   the rnn, gru, cfc and ltc pose cores at the flagship's widths
+          (768-d fused feature, 3 RNN layers, rnn_hidden_dim 1024, 256x512
+          images): StreamingEngine(max_sessions=4, fold_bn=True) over 4
+          windows with a closed session and a late joiner in its lane, in
+          bf16 (timed) and float32 (every lane within 1e-5 of its session's
+          own forward, session 0's first two windows within 1e-4 of the
+          same model on the CPU); cli.test on one sequence; 3 train steps
+          at B=16 (9 K3 launches each). K1 and K2 never launch
   kernel_dropout  K3 fused_dropout against its plain PyTorch version, bit
           for bit (torch.equal), forward and backward (the autograd
           Function with the kernel and with the plain version): the nine
@@ -605,11 +627,11 @@ def cde_bound(layers, args, out) -> dict:
     return bound(evals, n_params, nbytes)
 
 
-def make_windows(cfg, gen: np.random.Generator, n_windows: int):
+def make_windows(cfg, gen: np.random.Generator, n_windows: int, sessions: int = SESSIONS):
     m = cfg.model
     S = m.seq_len
     wins = {}
-    for sess in range(SESSIONS):
+    for sess in range(sessions):
         t = float(gen.uniform(0, 100))
         wins[sess] = []
         for _ in range(n_windows):
@@ -946,23 +968,24 @@ def train_config(**train_fields):
     return dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, **train_fields))
 
 
-def run_train(name: str, cfg, dev, steps: int, k3_per_step: int):
-    """``steps`` train steps of ``cfg`` (seeded init and batches) with the
-    launch counts set to 0 just before and read just after. Checks the
-    losses, the launches per step, which weights moved and which did not.
-    Returns the state, the step function, a batch and the K3 launches."""
+def run_train(name: str, cfg, dev, steps: int, k3_per_step: int, carry: bool = False):
+    """``steps`` train steps of ``cfg`` (seeded init and batches; the
+    carried step with ``carry``) with the launch counts set to 0 just
+    before and read just after. Checks the losses, the launches per step
+    (K1 and K2 never), which weights moved and which did not. Returns the
+    state, the step function, a batch, the K3 launches and the p50 step."""
     model = create_model(cfg, seed=SEED, device=dev, train=True)
     state = create_train_state(cfg, model, device=dev)
-    step = make_train_step(cfg, device=dev)
+    step = make_train_step(cfg, carry=carry, device=dev)
     batches = train_batches(cfg, steps, dev, SEED)
     before = {k: v.clone() for k, v in model.state_dict().items()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    k1, k3 = cuda_kernels.fused_ode_solve, cuda_kernels.fused_dropout
+    k1, k2, k3 = cuda_kernels.fused_ode_solve, cuda_kernels.fused_cde_solve, cuda_kernels.fused_dropout
     cuda_kernels.reset_launch_counts()          # this path's run starts here
     rows = []
     for b in batches:
-        n0, syncs = (k3.launches, k1.launches), odeint.host_syncs
+        n0, syncs = (k3.launches, k1.launches, k2.launches), odeint.host_syncs
         t = time.perf_counter()
         state, m = step(state, *b)
         loss = float(m["loss"])
@@ -971,14 +994,14 @@ def run_train(name: str, cfg, dev, steps: int, k3_per_step: int):
                      "grad_norm": float(m["grad_norm"]),
                      "solver_incomplete": int(m["solver_incomplete"]),
                      "k3": k3.launches - n0[0], "k1": k1.launches - n0[1],
-                     "host_syncs": odeint.host_syncs - syncs})
+                     "k2": k2.launches - n0[2], "host_syncs": odeint.host_syncs - syncs})
     launches = k3.launches
     for i, r in enumerate(rows):
         if not math.isfinite(r["loss"]):
             raise AssertionError(f"{name}: step {i} loss {r['loss']}")
-        if (r["k3"], r["k1"]) != (k3_per_step, 0):
-            raise AssertionError(f"{name}: step {i} launched K3 {r['k3']} and K1 {r['k1']} "
-                                 f"times, expected {k3_per_step} and 0")
+        if (r["k3"], r["k1"], r["k2"]) != (k3_per_step, 0, 0):
+            raise AssertionError(f"{name}: step {i} launched K3 {r['k3']}, K1 {r['k1']} and "
+                                 f"K2 {r['k2']} times, expected {k3_per_step}, 0 and 0")
     after = model.state_dict()
     frozen = cfg.train.freeze_encoder
     eval_graph = frozen and cfg.train.frozen_encoder_eval
@@ -996,12 +1019,13 @@ def run_train(name: str, cfg, dev, steps: int, k3_per_step: int):
     stay = pose | (set() if eval_graph else image_stats)
     if stay - moved:
         raise AssertionError(f"{name}: unchanged: {sorted(stay - moved)[:4]}")
-    phase(name, batch=cfg.train.batch_size, steps=rows, launches=launches,
-          p50_step_ms_after_first=statistics.median(r["ms"] for r in rows[1:]),
+    p50 = statistics.median(r["ms"] for r in rows[1:])
+    phase(name, batch=cfg.train.batch_size, carry=carry, steps=rows, launches=launches,
+          p50_step_ms_after_first=p50,
           peak_memory_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
           image_weights_moved=len(moved & image_w), image_stats_moved=len(moved & image_stats),
           pose_params_moved=len(moved & pose))
-    return state, step, batches[0], launches
+    return state, step, batches[0], launches, p50
 
 
 def train_plain(dev) -> int:
@@ -1064,10 +1088,10 @@ def profile_train(state, step, batch) -> None:
 
 def train_phases(dev) -> dict:
     """The three training paths that run K3; returns its launches on each."""
-    state, step, batch, n_train = run_train("train", train_config(), dev, 4, 9)
+    state, step, batch, n_train, _ = run_train("train", train_config(), dev, 4, 9)
     profile_train(state, step, batch)
     del state, step, batch
-    _, _, _, n_enc = run_train("train_encoder", train_config(freeze_encoder=False), dev, 3, 18)
+    _, _, _, n_enc, _ = run_train("train_encoder", train_config(freeze_encoder=False), dev, 3, 18)
     run_train("train_frozen_eval", train_config(frozen_encoder_eval=True), dev, 3, 0)
     torch.cuda.empty_cache()
     return {"train": n_train, "train_encoder": n_enc, "train_plain": train_plain(dev)}
@@ -1108,6 +1132,7 @@ def model_flags(cfg) -> list:
             "--ode_fn_num_layers", str(m.ode_fn_num_layers),
             "--ode_activation_fn", m.ode_activation_fn,
             "--rnn_num_layers", str(m.rnn_num_layers), "--compute_dtype", m.compute_dtype,
+            "--ode_rnn_type", m.ode_rnn_type, "--rnn_hidden_dim", str(m.rnn_hidden_dim),
             "--cde_hidden_dim", str(m.cde_hidden_dim),
             "--ode_solver", s.method, "--ode_rtol", str(s.rtol), "--ode_atol", str(s.atol),
             "--ode_max_steps", str(s.max_steps)]
@@ -1395,16 +1420,17 @@ def serve_cli(dev, work: Path, root, pth: Path) -> dict:
 TRAIN_SEQS, TRAIN_VAL_SEQS = ("05", "07"), ("10",)
 
 
-def train_cli_flags(root, save: Path, dev, epochs: int, model_type: str = "ode-rnn") -> list:
+def train_cli_flags(root, save: Path, dev, epochs: int, model_type: str = "ode-rnn",
+                    train_seqs=TRAIN_SEQS) -> list:
     """cli.train's flags for the flagship's train configuration (B=16,
     frozen encoder, frame dropout 0.3 +- 0.1 in training and 0.3 in the
     evaluation, K3 on the trunk) with ``model_type``'s core, ``epochs``
-    epochs, a checkpoint every epoch."""
+    epochs on ``train_seqs``, a checkpoint every epoch."""
     cfg = train_config()
     d, t = cfg.data, cfg.train
     flags = ["--data_dir", str(root), "--save_dir", str(save), "--device", str(dev),
              *model_flags(cfg), "--model_type", model_type,
-             "--train_seq", *TRAIN_SEQS, "--val_seq", *TRAIN_VAL_SEQS,
+             "--train_seq", *train_seqs, "--val_seq", *TRAIN_VAL_SEQS,
              "--batch_size", str(t.batch_size), "--freeze_encoder",
              "--data_dropout", str(d.data_dropout), "--data_dropout_std", str(d.data_dropout_std),
              "--eval_data_dropout", str(d.eval_data_dropout), "--seed", str(SEED),
@@ -1495,6 +1521,42 @@ def run_train_cli(name: str, args: list, steps: list, evals: list, k1_per_eval: 
     return timing, wall, got
 
 
+def split_run(name: str, flags: list, save: Path, dev, per_eval: int) -> dict:
+    """cli.train ``flags`` for two epochs in one run, then epoch 0 and a run
+    resumed from its checkpoints directory for epoch 1 (K1 ``per_eval`` a
+    window of the evaluation, K2 never). Returns each run's epoch reports,
+    wall and launches, the continuous run's peak memory, and the gaps
+    between the two epoch_001 checkpoints (empty: bitwise equal)."""
+    cfg = config_from_args(build_parser().parse_args(flags))
+    steps, evals = train_cli_counts(flags, (0, 1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cont, cont_s, n_cont = run_train_cli(name, ["--experiment_name", "cont", *flags],
+                                         steps, evals, per_eval, 0)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    split_dir = save / "split" / "checkpoints"
+    split0, split0_s, n_split0 = run_train_cli(
+        f"{name}_split", ["--experiment_name", "split", *flags, "--epochs_warmup", "1"],
+        steps[:1], evals[:1], per_eval, 0)
+    split1, split1_s, n_split1 = run_train_cli(
+        f"{name}_resume", ["--experiment_name", "split", *flags, "--pretrain", str(split_dir)],
+        steps[1:], evals[1:], per_eval, 0)
+    a = CheckpointManager(save / "cont" / "checkpoints").restore_raw("epoch_001")
+    b = CheckpointManager(split_dir).restore_raw("epoch_001")
+    return {"steps_by_epoch": steps, "eval_windows_by_epoch": evals,
+            "continuous": epoch_report(cfg, cont), "continuous_wall_s": cont_s,
+            "split": epoch_report(cfg, split0) + epoch_report(cfg, split1),
+            "split_wall_s": [split0_s, split1_s], "peak_memory_gib": peak,
+            "launches": {"continuous": n_cont, "split": n_split0, "resume": n_split1},
+            "gaps": tensor_gaps(a, b), "split_dir": split_dir, "epoch_001": b}
+
+
+def split_launches(run: dict, kernel: str) -> tuple:
+    """(continuous, split + resume) launches of ``kernel`` in a split run."""
+    n = run["launches"]
+    return n["continuous"][kernel], n["split"][kernel] + n["resume"][kernel]
+
+
 def train_cli(dev, work: Path, root) -> dict:
     """cli.train on the flagship at B=16 over the synthetic tree: two
     epochs in one run, then epoch 0 and a run resumed from its checkpoints
@@ -1502,38 +1564,19 @@ def train_cli(dev, work: Path, root) -> dict:
     split run's restored into a fresh state on the card bit for bit.
     Returns K3's and K1's launches on each run."""
     cfg = train_config()
-    per_eval = cfg.model.seq_len - 1           # K1: one launch a frame interval
     save = work / "train_cli"
-    flags = train_cli_flags(root, save, dev, epochs=2)
-    steps, evals = train_cli_counts(flags, (0, 1))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    cont, cont_s, n_cont = run_train_cli("train_cli", ["--experiment_name", "cont", *flags],
-                                         steps, evals, per_eval, 0)
-    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-    split_dir = save / "split" / "checkpoints"
-    split0, split0_s, n_split0 = run_train_cli(
-        "train_cli_split", ["--experiment_name", "split", *flags, "--epochs_warmup", "1"],
-        steps[:1], evals[:1], per_eval, 0)
-    split1, split1_s, n_split1 = run_train_cli(
-        "train_cli_resume", ["--experiment_name", "split", *flags, "--pretrain", str(split_dir)],
-        steps[1:], evals[1:], per_eval, 0)
-    a = CheckpointManager(save / "cont" / "checkpoints").restore_raw("epoch_001")
-    b = CheckpointManager(split_dir).restore_raw("epoch_001")
-    gaps = tensor_gaps(a, b)
+    run = split_run("train_cli", train_cli_flags(root, save, dev, epochs=2), save, dev,
+                    cfg.model.seq_len - 1)
+    gaps, b = run.pop("gaps"), run.pop("epoch_001")
     # the round trip on the card: epoch_001 restored into a fresh state
     state = create_train_state(cfg, create_model(cfg, seed=SEED + 5, device=dev, train=True),
                                device=dev)
-    state = CheckpointManager(split_dir).restore("epoch_001", state)
+    state = CheckpointManager(run.pop("split_dir")).restore("epoch_001", state)
     restored = {"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
                 "step": state.step, "generator": state.generator.get_state()}
     round_trip = tensor_gaps(restored, b)
     phase("train_cli", batch=cfg.train.batch_size, train_seqs=list(TRAIN_SEQS),
-          val_seqs=list(TRAIN_VAL_SEQS), steps_by_epoch=steps, eval_windows_by_epoch=evals,
-          continuous=epoch_report(cfg, cont), continuous_wall_s=cont_s,
-          split=epoch_report(cfg, split0) + epoch_report(cfg, split1),
-          split_wall_s=[split0_s, split1_s], peak_memory_gib=peak,
-          launches={"continuous": n_cont, "split": n_split0, "resume": n_split1},
+          val_seqs=list(TRAIN_VAL_SEQS), **run,
           split_vs_continuous_epoch_001=gaps or "bitwise equal",
           round_trip=round_trip or "bitwise equal")
     if round_trip:
@@ -1543,11 +1586,10 @@ def train_cli(dev, work: Path, root) -> dict:
                              f"run's: {gaps}")
     del state
     torch.cuda.empty_cache()
-    k3 = {"train_cli": n_cont["fused_dropout"],
-          "train_cli_split": n_split0["fused_dropout"] + n_split1["fused_dropout"]}
-    k1 = {"train_cli_eval": n_cont["fused_ode_solve"],
-          "train_cli_split_eval": n_split0["fused_ode_solve"] + n_split1["fused_ode_solve"]}
-    return {"k3": k3, "k1": k1}
+    (k3, k3_split), (k1, k1_split) = (split_launches(run, k) for k in
+                                      ("fused_dropout", "fused_ode_solve"))
+    return {"k3": {"train_cli": k3, "train_cli_split": k3_split},
+            "k1": {"train_cli_eval": k1, "train_cli_split_eval": k1_split}}
 
 
 def train_cli_cde(dev, work: Path, root) -> dict:
@@ -1586,6 +1628,258 @@ def train_cli_cde(dev, work: Path, root) -> dict:
             "k3_rde": n_rde["fused_dropout"]}
 
 
+# ---------------------------------------------------------------------------
+# Carried-state and TBPTT training
+# ---------------------------------------------------------------------------
+
+TBPTT_CHAIN = 8
+TBPTT_SEQS = ("00", "01")    # train_tbptt's own training sequences
+TBPTT_FRAMES = 200           # 20 chain chunks at the epoch's drawn ratio: one group of 16
+TBPTT_HW = (256, 512)        # written at the model's size: decode does no resize
+
+
+def recording_factory(factory, log: list):
+    """``factory`` (a train-step factory of cli.train) whose steps append
+    to ``log`` the device's peak memory of the step (reset just before)
+    and whether it was handed a carry."""
+    def build(*args, **kwargs):
+        step = factory(*args, **kwargs)
+
+        def rec(state, *batch):
+            torch.cuda.reset_peak_memory_stats()
+            out = step(state, *batch)
+            float(out[1]["loss"])
+            log.append({"peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                        "carried": len(batch) > 4 and batch[4] is not None})
+            return out
+
+        return rec
+
+    return build
+
+
+def train_tbptt(dev, work: Path, root) -> dict:
+    """cli.train --model_type cde --tbptt_chain 8 for one epoch at the
+    flagship's train configuration on two training sequences of its own,
+    evaluated on sequence 10 through K2: chunk and step counts, K3 9 a step,
+    K2 once a window of the evaluation and never in a step, K1 never; the
+    carry reset every 8 steps; the peak memory of a chain's last step no
+    higher than its second's. Returns K2's and K3's launches."""
+    t = time.perf_counter()
+    make_kitti_tree(root, seqs=TBPTT_SEQS, n_frames=TBPTT_FRAMES, img_hw=TBPTT_HW,
+                    seed=SEED + 1, speed_scale=EVAL_SPEED_SCALE)
+    write_s = time.perf_counter() - t
+    cfg = train_config()
+    flags = [*train_cli_flags(root, work / "train_tbptt", dev, 1, "cde", TBPTT_SEQS),
+             "--tbptt_chain", str(TBPTT_CHAIN)]
+    steps, evals = train_cli_counts(flags, (0,))
+    from ode_vio_tpu_torch.cli import train as train_module
+
+    loader = train_module.get_train_loader(config_from_args(build_parser().parse_args(flags)), 0,
+                                           logging.getLogger("chip_smoke.counts"))
+    chunks = len(loader.sampler.chunks)
+    if chunks < cfg.train.batch_size or steps[0] < TBPTT_CHAIN:
+        raise AssertionError(f"train_tbptt: {chunks} chunks, {steps} steps")
+    log, factory = [], train_module.make_streaming_train_step
+    train_module.make_streaming_train_step = recording_factory(factory, log)
+    try:
+        timing, wall, n = run_train_cli("train_tbptt", ["--experiment_name", "tbptt", *flags],
+                                        steps, evals, 0, 1)
+    finally:
+        train_module.make_streaming_train_step = factory
+    carried = [r["carried"] for r in log]
+    if carried != [i % TBPTT_CHAIN != 0 for i in range(steps[0])]:
+        raise AssertionError(f"train_tbptt: carried by step {carried}")
+    recs = timing["epochs"][0]["steps"]
+    ms = [r["s"] * 1e3 for r in recs]
+    peaks = [r["peak_gib"] for r in log]
+    chains = [peaks[i:i + TBPTT_CHAIN] for i in range(0, len(peaks), TBPTT_CHAIN)]
+    phase("train_tbptt", chain=TBPTT_CHAIN, train_seqs=list(TBPTT_SEQS), frames=TBPTT_FRAMES,
+          image_hw=list(TBPTT_HW), write_s=write_s, chunks=chunks, steps=steps[0],
+          eval_windows=evals, epoch=epoch_report(cfg, timing), wall_s=wall, launches=n,
+          p50_cold_step_ms=statistics.median(ms[::TBPTT_CHAIN]),
+          p50_carried_step_ms=statistics.median(m for i, m in enumerate(ms)
+                                                if i % TBPTT_CHAIN),
+          peak_gib_by_step=peaks, solver_incomplete_by_step=[r["solver_incomplete"] for r in recs])
+    for c in chains:
+        if c[-1] > c[1] * 1.01:
+            raise AssertionError(f"train_tbptt: peak memory grows along a chain: {c}")
+    return {"k2": n["fused_cde_solve"], "k3": n["fused_dropout"]}
+
+
+def exposure_draws(flags: list, epoch: int, steps: int) -> list:
+    """Which of an epoch's steps cli.train ``flags`` makes carried (the
+    draws of its ``_exposure_step``)."""
+    from ode_vio_tpu_torch.cli.train import _exposure_step
+
+    cfg = config_from_args(build_parser().parse_args(flags))
+    step = _exposure_step(lambda *a: False, lambda *a: True, cfg, epoch)
+    return [step(None) for _ in range(steps)]
+
+
+def train_carry(dev, work: Path, root) -> dict:
+    """cli.train --carry_exposure: one cde epoch at 0.2 (K2 only in the
+    evaluation); the ode-rnn split run at 0.5, its epoch_001 equal to the
+    continuous run's bit for bit; then 3 fresh and 3 carried
+    make_train_step steps each of ode-rnn and rde at B=16. Returns the
+    launches by path."""
+    cfg = train_config()
+    flags = [*train_cli_flags(root, work / "train_carry_cde", dev, 1, "cde"),
+             "--carry_exposure", "0.2"]
+    steps, evals = train_cli_counts(flags, (0,))
+    cde, cde_s, n_cde = run_train_cli("train_carry_cde", ["--experiment_name", "cde", *flags],
+                                      steps, evals, 0, 1)
+    save = work / "train_carry"
+    split_flags = [*train_cli_flags(root, save, dev, 2), "--carry_exposure", "0.5"]
+    run = split_run("train_carry_split", split_flags, save, dev, cfg.model.seq_len - 1)
+    gaps = run.pop("gaps")
+    del run["epoch_001"], run["split_dir"]
+    carried = [exposure_draws(split_flags, e, n) for e, n in enumerate(run["steps_by_epoch"])]
+    p50, k3_steps = {}, 0
+    for mt in ("ode-rnn", "rde"):
+        mcfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, model_type=mt))
+        for carry in (False, True):
+            name = f"train_carry_{mt.replace('-', '')}_{'carried' if carry else 'fresh'}"
+            _, _, _, k3, p50[name] = run_train(name, mcfg, dev, 3, 9, carry=carry)
+            k3_steps += k3
+            torch.cuda.empty_cache()
+    phase("train_carry", cde=epoch_report(cfg, cde), cde_wall_s=cde_s, cde_launches=n_cde,
+          cde_carried_by_step=exposure_draws(flags, 0, steps[0]), split_run=run,
+          split_carried_by_step=carried, split_vs_continuous_epoch_001=gaps or "bitwise equal",
+          p50_step_ms=p50,
+          carried_over_fresh={mt: p50[f"train_carry_{mt}_carried"] / p50[f"train_carry_{mt}_fresh"]
+                              for mt in ("odernn", "rde")})
+    if gaps:
+        raise AssertionError(f"train_carry: split run's epoch_001 differs: {gaps}")
+    (k3_split_c, k3_split_s), (k1_c, k1_s) = (split_launches(run, k) for k in
+                                              ("fused_dropout", "fused_ode_solve"))
+    return {"k2": {"train_carry_cde_eval": n_cde["fused_cde_solve"]},
+            "k1": {"train_carry_split_eval": k1_c + k1_s},
+            "k3": {"train_carry_cde": n_cde["fused_dropout"],
+                   "train_carry_split": k3_split_c + k3_split_s, "train_carry_steps": k3_steps}}
+
+
+# ---------------------------------------------------------------------------
+# The rnn, gru, cfc and ltc pose cores
+# ---------------------------------------------------------------------------
+
+CORES = {"rnn": dict(model_type="rnn"), "gru": dict(model_type="rnn", ode_rnn_type="gru"),
+         "cfc": dict(model_type="cfc"), "ltc": dict(model_type="ltc")}
+# per window: sessions to open, sessions to close, sessions served. Session
+# 2 closes after its first window and session 4 takes its lane late;
+# session 1 idles in window 2
+CORE_SCHEDULE = [([0, 1], [], [0, 1]), ([2], [], [0, 1, 2]), ([3], [2], [0, 3]),
+                 ([4], [], [0, 1, 3, 4])]
+CORE_LANE_ATOL = 1e-5        # an engine lane against its session's own forward
+CORE_CPU_ATOL = 1e-4         # the card against the CPU, float32 encoders
+
+
+def core_config(fields: dict, compute_dtype: str = "bfloat16"):
+    cfg = train_config()
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, compute_dtype=compute_dtype, **fields))
+
+
+def serve_cores(engine: StreamingEngine, wins) -> tuple:
+    """CORE_SCHEDULE on ``engine``: ({session: [poses a served window]},
+    step seconds, (K1, K2) launches)."""
+    sids, nxt, out, lat = {}, {s: 0 for s in wins}, {}, []
+    n0 = (cuda_kernels.fused_ode_solve.launches, cuda_kernels.fused_cde_solve.launches)
+    for opens, closes, served in CORE_SCHEDULE:
+        for s in opens:
+            sids[s] = engine.open_session()
+        for s in closes:
+            engine.close_session(sids[s])
+        batch = {sids[s]: wins[s][nxt[s]] for s in served}
+        t = time.perf_counter()
+        res = engine.step(batch)
+        lat.append(time.perf_counter() - t)
+        for s in served:
+            nxt[s] += 1
+            out.setdefault(s, []).append(res[sids[s]])
+    launches = (cuda_kernels.fused_ode_solve.launches - n0[0],
+                cuda_kernels.fused_cde_solve.launches - n0[1])
+    return out, lat, launches
+
+
+def direct_poses(infer, windows) -> list:
+    """One session's windows through ``infer`` one after another, its clock
+    re-based to its first time as the engine re-bases it."""
+    t0, carry, out = windows[0][2][0], None, []
+    for imgs, imus, ts in windows:
+        batch = (torch.from_numpy(imgs[None]).to(infer.device),
+                 torch.from_numpy(imus[None]).to(infer.device),
+                 torch.from_numpy((np.asarray(ts, np.float64) - t0).astype(np.float32)[None])
+                 .to(infer.device))
+        poses, carry = infer(*batch, carry)
+        out.append(poses[0].cpu().numpy())
+    return out
+
+
+def core_phase(name: str, fields: dict, dev, work: Path, root) -> dict:
+    """One pose core at the flagship's widths: served by StreamingEngine
+    (max_sessions 4, fold_bn) on CORE_SCHEDULE in bf16 (timed) and float32
+    (every lane against its session's own forward within CORE_LANE_ATOL,
+    session 0 against the CPU within CORE_CPU_ATOL); cli.test on one
+    sequence; 3 train steps at B=16. K1 and K2 never launch."""
+    cfg = core_config(fields)
+    wins = make_windows(cfg, np.random.default_rng(SEED), len(CORE_SCHEDULE), sessions=5)
+    model = create_model(cfg, seed=SEED, device=dev)
+    engine = StreamingEngine(model, max_sessions=SESSIONS, fold_bn=True, device=dev)
+    engine.warmup(wins[0][0])
+    cuda_kernels.reset_launch_counts()          # this path's run starts here
+    _, lat, serve_launches = serve_cores(engine, wins)
+    del engine
+    cfg32 = core_config(fields, "float32")
+    model32 = create_model(cfg32, seed=SEED, device=dev)
+    engine = StreamingEngine(model32, max_sessions=SESSIONS, fold_bn=True, device=dev)
+    engine.warmup(wins[0][0])
+    cuda_kernels.reset_launch_counts()
+    lanes, lat32, launches32 = serve_cores(engine, wins)
+    infer = make_infer_fn(model32, fold_bn=True, device=dev)
+    lane_gap, direct = 0.0, {}
+    for s, got in lanes.items():
+        direct[s] = direct_poses(infer, wins[s][:len(got)])
+        lane_gap = max(lane_gap, max(float(np.abs(a - b).max()) for a, b in zip(got, direct[s])))
+    cpu = create_model(cfg32, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model32.state_dict().items()})
+    t = time.perf_counter()
+    cpu_poses = direct_poses(make_infer_fn(cpu, fold_bn=True, device="cpu"), wins[0][:2])
+    cpu_s = time.perf_counter() - t
+    cpu_gap = max(float(np.abs(a - b).max()) for a, b in zip(cpu_poses, direct[0]))
+    del engine, infer, model32, cpu
+    cuda_kernels.reset_launch_counts()
+    t = time.perf_counter()
+    cli_test_main(["--experiment_name", f"core_{name}", "--data_dir", str(root), "--save_dir",
+                   str(work / "results"), "--device", str(dev), *model_flags(cfg),
+                   "--val_seq", EVAL_SEQS[0], "--seed", str(SEED)])
+    cli_s = time.perf_counter() - t
+    cli_launches = (cuda_kernels.fused_ode_solve.launches, cuda_kernels.fused_cde_solve.launches)
+    summary = check_summary(f"cores {name}", work / "results" / f"core_{name}_test" /
+                            "summary.txt", EVAL_SEQS[:1])
+    _, _, _, k3, train_p50 = run_train(f"cores_train_{name}", cfg, dev, 3, 9)
+    out = {"p50_served_window_ms": statistics.median(lat) * 1e3, "step_ms": [x * 1e3 for x in lat],
+           "p50_served_window_ms_f32": statistics.median(lat32) * 1e3,
+           "lane_vs_direct": lane_gap, "card_vs_cpu": cpu_gap, "cpu_s": cpu_s,
+           "carry_lane_axis": model.carry_lane_axis, "cli_test_s": cli_s, "cli_summary": summary,
+           "p50_train_step_ms": train_p50, "k3": k3,
+           "k1_k2": {"serve": serve_launches, "serve_f32": launches32, "cli_test": cli_launches}}
+    if any(n != (0, 0) for n in out["k1_k2"].values()):
+        raise AssertionError(f"cores {name}: K1/K2 launched {out['k1_k2']}")
+    if not lane_gap <= CORE_LANE_ATOL or not cpu_gap <= CORE_CPU_ATOL:
+        raise AssertionError(f"cores {name}: lanes vs direct {lane_gap} (limit "
+                             f"{CORE_LANE_ATOL}), card vs CPU {cpu_gap} (limit {CORE_CPU_ATOL})")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def cores(dev, work: Path, root) -> dict:
+    out = {name: core_phase(name, fields, dev, work, root) for name, fields in CORES.items()}
+    phase("cores", lane_atol=CORE_LANE_ATOL, cpu_atol=CORE_CPU_ATOL, **out)
+    return {f"cores_train_{name}": r["k3"] for name, r in out.items()}
+
+
 def main() -> None:
     seconds = {}
 
@@ -1615,15 +1909,21 @@ def main() -> None:
         torch.cuda.empty_cache()
         tcli = timed("train_cli", train_cli, dev, work, root)
         tcde = timed("train_cli_cde", train_cli_cde, dev, work, root)
+        tbptt = timed("train_tbptt", train_tbptt, dev, work, root)
+        carry = timed("train_carry", train_carry, dev, work, root)
+        k3_cores = timed("cores", cores, dev, work, root)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     k1_by_path = {"slice": k1_launches, **ev["launches"], "eval_cli": cli["k1"],
-                  **serve_launches, **tcli["k1"]}
+                  **serve_launches, **tcli["k1"], **carry["k1"]}
     k2_by_path["eval_cli_cde"] = cli["k2"]
     k2_by_path["train_cli_cde_eval"] = tcde["k2"]
+    k2_by_path["train_tbptt_eval"] = tbptt["k2"]
+    k2_by_path.update(carry["k2"])
     k3 = timed("kernel_dropout", kernel_dropout_check, dev)
     k3_by_path = timed("train", train_phases, dev)
-    k3_by_path.update(tcli["k3"], train_cli_cde=tcde["k3"], train_rde=tcde["k3_rde"])
+    k3_by_path.update(tcli["k3"], train_cli_cde=tcde["k3"], train_rde=tcde["k3_rde"],
+                      train_tbptt=tbptt["k3"], **carry["k3"], **k3_cores)
     phase("seconds", **seconds)
     print(json.dumps({"kernels": [
         {"name": "fused_ode_solve", "route": "cuda",

@@ -36,11 +36,7 @@ UNPORTED = {
     "mesh_model": (1, "Queue 1 item 7 (parallel/mesh.py)"),
     "adjoint": (False, "Queue 1 item 2 (the continuous adjoint)"),
     "ode_fixed_step": (False, "Queue 1 item 2 (the fixed-step solvers)"),
-    "carry_exposure": (0.0, "Queue 1 item 5c (the carried train step)"),
-    "carry_split": (0, "Queue 1 item 5c (the carried train step)"),
-    "tbptt_chain": (0, "Queue 1 item 5c (the TBPTT train step)"),
 }
-UNPORTED_MODEL_TYPES = ("rnn", "cfc", "ltc")
 # method strings of the fixed-grid Adams solvers, which are not ported
 ADAMS_METHODS = ("explicit_adams", "implicit_adams")
 
@@ -195,13 +191,19 @@ def build_parser() -> argparse.ArgumentParser:
                         "semantics (train_model.py:191-194)")
     p.add_argument("--carry_exposure", type=float, default=0.0,
                    help="probability a train step uses the carried "
-                        "(TBPTT-split) window (not ported)")
+                        "(TBPTT-split) window: segment 1 trains fresh, its "
+                        "detached final hidden state seeds segment 2; in "
+                        "[0, 1], 0 = off")
     p.add_argument("--carry_split", type=int, default=0,
-                   help="boundary frame index k of the carried split "
-                        "(not ported)")
+                   help="boundary frame index k of the carried split: "
+                        "1..seq_len-2 for ode-rnn/rnn/cfc/ltc, 2..seq_len-3 "
+                        "for cde/rde; 0 = midpoint")
     p.add_argument("--tbptt_chain", type=int, default=0,
-                   help="full-sequence TBPTT streaming training over N "
-                        "consecutive windows (not ported)")
+                   help="full-sequence TBPTT: windows in sequence order, "
+                        "the hidden state carried across N consecutive "
+                        "train steps, then reset (gradients cut at window "
+                        "boundaries); exclusive with --carry_exposure; "
+                        "0 = off")
     p.add_argument("--weight_decay", type=float, default=5e-5)
     p.add_argument("--epochs_warmup", type=int, default=20)
     p.add_argument("--epochs_joint", type=int, default=40)
@@ -252,10 +254,6 @@ def refuse_unported(args) -> None:
         raise SystemExit("--mesh_data other than 1 is not ported to "
                          "ode_vio_tpu_torch yet (ROADMAP.md, Queue 1 item 7 "
                          "(parallel/mesh.py))")
-    if args.model_type in UNPORTED_MODEL_TYPES:
-        raise SystemExit(f"--model_type {args.model_type} is not ported to "
-                         "ode_vio_tpu_torch yet (ROADMAP.md, Queue 1 item 6 "
-                         "(other pose cores))")
 
 
 def check_eval_dp(eval_dp: int, device: torch.device) -> None:
@@ -290,6 +288,7 @@ def config_from_args(args) -> Config:
             ode_activation_fn=args.ode_activation_fn,
             ode_rnn_type=args.ode_rnn_type,
             rnn_num_layers=args.rnn_num_layers,
+            rnn_hidden_dim=args.rnn_hidden_dim,
             rnn_dropout_out=args.rnn_dropout_out,
             cde_hidden_dim=args.cde_hidden_dim,
             cde_fn_num_layers=args.cde_fn_num_layers,
@@ -338,6 +337,9 @@ def config_from_args(args) -> Config:
             gradient_clip=args.gradient_clip,
             freeze_encoder=args.freeze_encoder,
             frozen_encoder_eval=args.frozen_encoder_eval,
+            carry_exposure=args.carry_exposure,
+            carry_split=args.carry_split,
+            tbptt_chain=args.tbptt_chain,
             seed=args.seed,
             print_frequency=args.print_frequency,
             ckpt_every=args.ckpt_every,

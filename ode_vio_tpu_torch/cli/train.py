@@ -5,8 +5,11 @@ The port's counterpart of ``ode_vio_tpu/cli/train.py`` (the reference's
 frame-dropout ratio resampled, the three-phase learning rate, a checkpoint
 every ``--ckpt_every`` epochs, a streaming KITTI evaluation after every
 epoch with the best t_rel checkpointed, and optional wandb logging. Trains
-the ode-rnn, cde and rde pose cores on one device, ``--device`` (default
-``cuda``).
+all six pose cores on one device, ``--device`` (default ``cuda``).
+``--carry_exposure`` makes that share of the steps carried (the window
+split, its second segment seeded with the first's detached hidden state);
+``--tbptt_chain N`` trains on windows in sequence order with the hidden
+state carried across chains of N steps.
 
 ``--pretrain`` takes a reference-layout checkpoint file, which
 warm-starts the weights with a fresh optimizer, or a checkpoints directory
@@ -28,7 +31,8 @@ from ode_vio_tpu_torch.cli.flags import build_parser, check_eval_dp, config_from
 from ode_vio_tpu_torch.cli.test import write_plots
 from ode_vio_tpu_torch.config import Config, resolve_device
 from ode_vio_tpu_torch.data.evaluation import KittiEvaluator
-from ode_vio_tpu_torch.data.kitti import BoundarySafeBatchSampler, KittiDataset
+from ode_vio_tpu_torch.data.kitti import (BoundarySafeBatchSampler, KittiDataset,
+                                          StreamingChainSampler)
 from ode_vio_tpu_torch.data.loader import PrefetchingLoader
 from ode_vio_tpu_torch.data.transforms import get_transforms
 from ode_vio_tpu_torch.models.convert import load_flownet, load_pretrain, require_port_checkpoint
@@ -38,6 +42,7 @@ from ode_vio_tpu_torch.training.loop import (
     create_train_state,
     lr_for_epoch,
     make_infer_fn,
+    make_streaming_train_step,
     make_train_step,
     set_learning_rate,
 )
@@ -47,7 +52,9 @@ from ode_vio_tpu_torch.utils.logging_utils import setup_experiment_directories, 
 def get_train_loader(cfg: Config, epoch: int, logger) -> PrefetchingLoader:
     """A fresh dataset for ``epoch`` with a frame-dropout ratio drawn from
     N(data_dropout, data_dropout_std) clipped to [0, 0.9], batched without
-    crossing a sequence boundary and decoded by the native pipeline."""
+    crossing a sequence boundary and decoded by the native pipeline. Under
+    ``tbptt_chain`` the batches are ``StreamingChainSampler``'s: lane b of
+    consecutive batches walks one chunk of boundary-sharing windows."""
     rng = np.random.default_rng(cfg.train.seed * 100003 + epoch)
     ratio = float(np.clip(rng.normal(cfg.data.data_dropout, cfg.data.data_dropout_std), 0, 0.9))
     logger.info("epoch %d dropout ratio: %.4f", epoch, ratio)
@@ -58,8 +65,14 @@ def get_train_loader(cfg: Config, epoch: int, logger) -> PrefetchingLoader:
                          base=False)
     ds = KittiDataset(cfg.data.data_dir, cfg.data.seq_len, cfg.data.train_seq,
                       transform=None, dropout=ratio, rng=rng)
-    sampler = BoundarySafeBatchSampler(len(ds), cfg.train.batch_size, shuffle=cfg.data.shuffle,
-                                       seed=cfg.train.seed + epoch, drop_last=True)
+    if cfg.train.tbptt_chain:
+        sampler = StreamingChainSampler(ds.seq_num_windows, cfg.train.batch_size,
+                                        cfg.train.tbptt_chain, stride=cfg.data.seq_len - 1,
+                                        shuffle=cfg.data.shuffle, seed=cfg.train.seed + epoch)
+    else:
+        sampler = BoundarySafeBatchSampler(len(ds), cfg.train.batch_size,
+                                           shuffle=cfg.data.shuffle,
+                                           seed=cfg.train.seed + epoch, drop_last=True)
     return PrefetchingLoader(ds, sampler, (cfg.model.img_h, cfg.model.img_w), transform=aug,
                              decode_threads=max(1, cfg.data.workers))
 
@@ -67,11 +80,20 @@ def get_train_loader(cfg: Config, epoch: int, logger) -> PrefetchingLoader:
 def train_epoch(cfg: Config, loader, train_step, state, logger, epoch: int, steps=None):
     """One pass over ``loader``; returns the state and the mean loss.
     ``steps``, a list, receives each step's wall seconds (the step waited
-    for), loss and truncated solves."""
+    for), loss and truncated solves. Under ``tbptt_chain`` the hidden state
+    threads from step to step and resets at every chain start (each
+    ``chain``-th step), where the sampler starts its chains."""
     losses = []
+    chain = cfg.train.tbptt_chain
+    hc = None
     for it, batch in enumerate(loader):
         t = time.perf_counter()
-        state, metrics = train_step(state, *batch)
+        if chain:
+            if it % chain == 0:
+                hc = None
+            state, metrics, hc = train_step(state, *batch, hc)
+        else:
+            state, metrics = train_step(state, *batch)
         losses.append(metrics["loss"])
         if steps is not None:
             loss = float(metrics["loss"])  # waits for the step
@@ -87,6 +109,21 @@ def train_epoch(cfg: Config, loader, train_step, state, logger, epoch: int, step
                     "(truncated integral; raise max_steps_train or loosen tolerances)",
                     epoch, it + 1, int(m["solver_incomplete"]))
     return state, float(np.mean([float(x) for x in losses])) if losses else 0.0
+
+
+def _exposure_step(fresh_step, carried_step, cfg: Config, epoch: int):
+    """The step of ``epoch`` under ``carry_exposure``: each call takes the
+    carried step with that probability, else the fresh one. The draws come
+    from (seed, epoch), so a run resumed at an epoch boundary makes the
+    draws of the run that did not stop."""
+    rng = np.random.default_rng(cfg.train.seed * 100003 + epoch + 0xCA44)
+
+    def step(state, *batch):
+        if rng.random() < cfg.train.carry_exposure:
+            return carried_step(state, *batch)
+        return fresh_step(state, *batch)
+
+    return step
 
 
 def _warm_start_epoch(pretrain) -> int:
@@ -161,7 +198,27 @@ def main(argv=None, timing: dict | None = None) -> None:
             best = float((resume.metadata(name) or {}).get("best_t_rel", best))
             logger.info("resumed from %s epoch %d (best t_rel %.4f)", cfg.pretrain, latest, best)
 
-    train_step = make_train_step(cfg, device=device)
+    if cfg.train.tbptt_chain:
+        train_step = make_streaming_train_step(cfg, device=device)
+        if cfg.data.hflip or cfg.data.color:
+            logger.warning(
+                "tbptt_chain=%d with per-window random augmentations (--hflip/--color): "
+                "augmentation draws are independent per window, so a chain's carried "
+                "state crosses inconsistently-augmented windows", cfg.train.tbptt_chain)
+    else:
+        train_step = make_train_step(cfg, device=device)
+    carried_step = None
+    if cfg.train.carry_exposure > 0.0:
+        carried_step = make_train_step(cfg, carry=True, device=device)
+        mt = cfg.model.model_type
+        mode = getattr(cfg.model, f"{mt}_streaming_mode", None)
+        if mt in ("cde", "rde") and mode != "carry":
+            logger.warning(
+                "carry_exposure=%.2f targets 'carry'-mode streaming eval (the carried "
+                "regime seeds segment 2 with the previous segment's final latent, exactly "
+                "what --%s_streaming_mode=carry feeds the core at eval); with streaming "
+                "mode %r the exposed distribution does not match eval's",
+                cfg.train.carry_exposure, mt, mode)
     # one inference callable for the whole run, its weights swapped each
     # epoch, with the BatchNorm statistics folded into the convolutions
     infer = make_infer_fn(state.model, fold_bn=True, device=device)
@@ -176,7 +233,9 @@ def main(argv=None, timing: dict | None = None) -> None:
         loader = get_train_loader(cfg, epoch, logger)
         steps = None if records is None else []
         t0 = time.perf_counter()
-        state, avg_loss = train_epoch(cfg, loader, train_step, state, logger, epoch, steps)
+        step = train_step if carried_step is None else _exposure_step(
+            train_step, carried_step, cfg, epoch)
+        state, avg_loss = train_epoch(cfg, loader, step, state, logger, epoch, steps)
         train_s = time.perf_counter() - t0
         logger.info("epoch %d done: loss %.6f (%.1fs)", epoch, avg_loss, train_s)
 

@@ -3,9 +3,8 @@
 The port's copy of the solver and model dataclasses of the JAX package
 (``ode_vio_tpu/config.py``): same field names, same defaults, so a
 configuration reads the same in both packages. Only the fields that a
-ported module reads are here; the others (the adjoint, the rnn/cfc/ltc
-cores, the s2d and int8 encoder rewrites, the carry-exposure and TBPTT
-settings, the mesh) come with the modules that read them.
+ported module reads are here; the others (the adjoint, the s2d and int8
+encoder rewrites, the mesh) come with the modules that read them.
 
 One knob changes meaning: the JAX package's ``use_pallas`` tri-state
 becomes :attr:`ModelConfig.use_kernels`, the switch for the port's
@@ -60,7 +59,7 @@ class SolverConfig:
 class ModelConfig:
     """Model family and architecture hyperparameters."""
 
-    model_type: str = "ode-rnn"  # ode-rnn | cde | rde (rnn | ltc | cfc: not ported)
+    model_type: str = "ode-rnn"  # ode-rnn | rnn | cde | rde | ltc | cfc
     img_w: int = 512
     img_h: int = 256
     v_f_len: int = 512           # visual feature length
@@ -76,6 +75,7 @@ class ModelConfig:
     ode_activation_fn: str = "tanh"  # tanh | relu | leaky_relu | softplus
     ode_rnn_type: str = "rnn"    # rnn | gru
     rnn_num_layers: int = 2
+    rnn_hidden_dim: int = 1024   # the cfc/ltc cores' hidden state
     rnn_dropout_out: float = 0.0  # train-mode dropout on the RNN outputs
 
     # CDE core: field z -> hidden x cde_fn_num_layers -> hidden*(hidden+1)
@@ -162,10 +162,34 @@ class TrainConfig:
     # with freeze_encoder: the frozen image encoder runs its inference
     # graph (BatchNorm folded from the current statistics, no dropout)
     frozen_encoder_eval: bool = False
+    # carried-state exposure: with this probability a train step splits
+    # its window at frame ``carry_split`` (0 = (seq_len-1)//2), trains the
+    # first segment fresh and the second from the first's final hidden
+    # state, the gradient cut at the splice (training/loop.py)
+    carry_exposure: float = 0.0
+    carry_split: int = 0
+    # full-sequence TBPTT: windows in sequence order, the hidden state
+    # carried across chains of this many train steps, the gradient cut at
+    # every window boundary; 0 = off
+    tbptt_chain: int = 0
     seed: int = 0
     angle_loss_weight: float = 100.0  # loss = 100*MSE(rot) + MSE(trans)
     print_frequency: int = 10    # cli.train logs every this many steps
     ckpt_every: int = 2          # cli.train checkpoints every N epochs
+
+    def __post_init__(self):
+        if not 0.0 <= self.carry_exposure <= 1.0:
+            raise ValueError(f"carry_exposure={self.carry_exposure} must be a "
+                             "probability in [0, 1]")
+        if self.tbptt_chain and self.carry_exposure > 0.0:
+            raise ValueError(
+                "tbptt_chain and carry_exposure are mutually exclusive: "
+                "full-sequence TBPTT trains the real carried-state "
+                "distribution; the single-splice exposure is its "
+                "within-window approximation")
+        if self.tbptt_chain == 1:
+            raise ValueError("tbptt_chain=1 never carries state (every step would be "
+                             "a chain start); use 0 to disable or >= 2")
 
     @property
     def total_epochs(self) -> int:

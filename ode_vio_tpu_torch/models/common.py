@@ -1,6 +1,7 @@
 """Shared model components, train-mode dropout and the weight init of the
 reference (kaiming-normal conv/linear with zero bias, BatchNorm scale 1 /
-bias 0, stacked RNN/GRU at torch's default uniform)."""
+bias 0, stacked RNN/GRU at torch's default uniform; the LTC cell's
+log_tau 0 and A ~ N(0, 0.1^2) as the JAX package draws them)."""
 
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ import torch
 from torch import nn
 
 from ode_vio_tpu_torch.ops.cuda_kernels import FusedDropout
+from ode_vio_tpu_torch.ops.liquid import LTCCell
 from ode_vio_tpu_torch.ops.mlp import apply_mlp, get_activation
 from ode_vio_tpu_torch.ops.rnn_cells import init_cell
 
@@ -25,6 +27,12 @@ class SolveStats(NamedTuple):
     accepted: torch.Tensor
     rejected: torch.Tensor
     incomplete: torch.Tensor
+
+
+def no_solve(batch: int, device) -> SolveStats:
+    """The counts of a pose core that solves nothing (rnn, cfc, ltc)."""
+    zero = torch.zeros((), dtype=torch.int64, device=device)
+    return SolveStats(zero, zero, torch.zeros(batch, dtype=torch.int32, device=device))
 
 
 def draw_key(generator: torch.Generator) -> int:
@@ -115,6 +123,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                 m.bias.zero_()
         elif isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d)):
             m.reset_parameters()
+        elif isinstance(m, LTCCell):
+            m.init_extra(generator)  # its Linears are drawn as every Linear
         elif isinstance(m, (nn.RNN, nn.GRU)):
             for l in range(m.num_layers):
                 cell = init_cell("gru" if isinstance(m, nn.GRU) else "rnn",

@@ -14,6 +14,11 @@ accepts. Layout rules (those of ``ode_vio_tpu/models/convert.py``):
 * The cde/rde cores: ``cde_func`` -> ``cde_func.net.{2i}``, ``initial`` ->
   ``initial.0``, ``reduction0``/``reduction1`` -> ``reduction_net.0``/``.2``
   (cde), ``reduction`` -> ``reduction_net`` (rde).
+* The ode-rnn and rnn stacks: layer k's ``w_ih``/``w_hh``/``b_ih``/``b_hh``
+  -> ``rnn.weight_ih_l{k}``... The CfC cell -> ``rnn.rnn_cell.backbone.0``,
+  ``ff1``, ``ff2``, ``time_a``, ``time_b``; the LTC cell -> ``rnn.w_x``,
+  ``rnn.w_h``, ``rnn.log_tau``, ``rnn.A`` (the keys JAX's
+  ``export_pose_net`` writes).
 * BatchNorm scale/bias/mean/var map to weight/bias/running_mean/
   running_var, plus a zero ``num_batches_tracked``. A BN-folded tree (no
   bn entries, conv biases present) converts too.
@@ -67,6 +72,11 @@ def _mlp(sd: dict, key: str, layers) -> None:
         sd[f"{key}.{2 * i}.bias"] = layer["b"]
 
 
+def _lin(sd: dict, key: str, lin: Mapping) -> None:
+    sd[f"{key}.weight"] = lin["w"]
+    sd[f"{key}.bias"] = lin["b"]
+
+
 def from_jax_variables(variables: Mapping[str, Any], cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     params = variables["params"]
     stats = variables.get("batch_stats", {})
@@ -99,12 +109,24 @@ def from_jax_variables(variables: Mapping[str, Any], cfg: ModelConfig) -> Dict[s
     pose = params["pose_net"]
     if "fuse" in pose:
         _dense(sd, "Pose_net.fuse.net.0", pose["fuse"]["gate"])
-    if cfg.model_type == "ode-rnn":
-        _mlp(sd, "Pose_net.ode_func.net", pose["ode_func"])
+    if cfg.model_type in ("ode-rnn", "rnn"):
+        if cfg.model_type == "ode-rnn":
+            _mlp(sd, "Pose_net.ode_func.net", pose["ode_func"])
         for k, cell in enumerate(pose["rnn"]):
             for ours, theirs in (("w_ih", "weight_ih"), ("w_hh", "weight_hh"),
                                  ("b_ih", "bias_ih"), ("b_hh", "bias_hh")):
                 sd[f"Pose_net.rnn.{theirs}_l{k}"] = cell[ours]
+    elif cfg.model_type == "cfc":
+        cell = pose["cfc"]
+        _lin(sd, "Pose_net.rnn.rnn_cell.backbone.0", cell["backbone"])
+        for name in ("ff1", "ff2", "time_a", "time_b"):
+            _lin(sd, f"Pose_net.rnn.rnn_cell.{name}", cell[name])
+    elif cfg.model_type == "ltc":
+        cell = pose["ltc"]
+        _lin(sd, "Pose_net.rnn.w_x", cell["w_x"])
+        _lin(sd, "Pose_net.rnn.w_h", cell["w_h"])
+        sd["Pose_net.rnn.log_tau"] = cell["log_tau"]
+        sd["Pose_net.rnn.A"] = cell["A"]
     else:  # cde, rde
         _mlp(sd, "Pose_net.cde_func.net", pose["cde_func"])
         _dense(sd, "Pose_net.initial.0", pose["initial"])

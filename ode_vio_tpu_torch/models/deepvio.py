@@ -5,8 +5,9 @@ Shape contract, the JAX package's layout:
     img (B, S, H, W, 3), imu (B, 10*(S-1)+1, 6), ts (B, S)
     -> poses (B, S-1, 6), carry, SolveStats
 
-The carry is the pose core's: (L, B, F) for ode-rnn; (B, H) for cde and
-rde, or in their history mode a dict of (B, ...) tensors.
+The carry is the pose core's: (L, B, F) for ode-rnn and rnn; (B, H) for
+cde, rde, cfc and ltc, or in the cde/rde history mode a dict of (B, ...)
+tensors.
 :attr:`DeepVIO.carry_lane_axis` is the axis of its leaves that indexes
 the batch lanes.
 
@@ -26,21 +27,18 @@ from ode_vio_tpu_torch.config import Config, ModelConfig, SolverConfig, resolve_
 from ode_vio_tpu_torch.models.common import Carry, init_weights
 from ode_vio_tpu_torch.models.encoders import ImageEncoder, InertialEncoder
 from ode_vio_tpu_torch.models.pose_cde import PoseCDE
+from ode_vio_tpu_torch.models.pose_ncp import PoseNCP
 from ode_vio_tpu_torch.models.pose_odernn import PoseODERNN
 from ode_vio_tpu_torch.models.pose_rde import PoseRDE
+from ode_vio_tpu_torch.models.pose_rnn import PoseRNN
 
 POSE_CORES = ("ode-rnn", "rnn", "cde", "rde", "cfc", "ltc")
 
 
 def require_ported(model_type: str) -> None:
-    """Raise for a pose core the JAX package lacks (ValueError) or the port
-    lacks (NotImplementedError, naming its ROADMAP.md item)."""
+    """Raise ValueError for a pose core the JAX package lacks."""
     if model_type not in POSE_CORES:
         raise ValueError(f"model_type '{model_type}' not supported; choose from {POSE_CORES}")
-    if model_type in ("rnn", "cfc", "ltc"):
-        raise NotImplementedError(
-            f"the '{model_type}' pose core is not ported yet (ROADMAP.md, "
-            "Queue 1 item 6: other pose cores)")
 
 
 class DeepVIO(nn.Module):
@@ -56,8 +54,12 @@ class DeepVIO(nn.Module):
         self.Inertial_net = InertialEncoder(cfg)
         if mt == "ode-rnn":
             self.Pose_net = PoseODERNN(cfg, solver)
-        else:
+        elif mt == "rnn":
+            self.Pose_net = PoseRNN(cfg)
+        elif mt in ("cde", "rde"):
             self.Pose_net = (PoseCDE if mt == "cde" else PoseRDE)(cfg, cde_solver)
+        else:
+            self.Pose_net = PoseNCP(cfg, cell_type=mt)
 
     @property
     def carry_lane_axis(self) -> int:

@@ -28,7 +28,7 @@ from ode_vio_tpu_torch.models.common import MLPField, PoseRegressor, SolveStats,
 from ode_vio_tpu_torch.models.fusion import FusionModule
 from ode_vio_tpu_torch.ops.cuda_kernels import fused_ode_solve
 from ode_vio_tpu_torch.ops.mlp import ode_func_sizes
-from ode_vio_tpu_torch.ops.rnn_cells import step_stack
+from ode_vio_tpu_torch.ops.rnn_cells import stack_layers, step_stack
 from ode_vio_tpu_torch.ops.solvers.odeint import (SolverOptions, solve_ivp_batched_dt,
                                                   solve_ivp_dt)
 
@@ -53,13 +53,6 @@ class PoseODERNN(nn.Module):
         self.rnn = rnn(F, F, cfg.rnn_num_layers)
         self.regressor = PoseRegressor(F)
 
-    def _cells(self):
-        return [{"w_ih": getattr(self.rnn, f"weight_ih_l{l}"),
-                 "w_hh": getattr(self.rnn, f"weight_hh_l{l}"),
-                 "b_ih": getattr(self.rnn, f"bias_ih_l{l}"),
-                 "b_hh": getattr(self.rnn, f"bias_hh_l{l}")}
-                for l in range(self.rnn.num_layers)]
-
     def forward(self, fv: torch.Tensor, fi: torch.Tensor, ts: torch.Tensor,
                 prev: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None):
@@ -77,7 +70,7 @@ class PoseODERNN(nn.Module):
 
         layers = self.ode_func.layers()
         use_kernels = cfg.resolved_use_kernels(fused.device) and not self.training
-        cells = self._cells()
+        cells = stack_layers(self.rnn)
         dt = torch.full((L * B,), opts.dt0, dtype=torch.float32, device=fused.device)
         accepted = torch.zeros((), dtype=torch.int64, device=fused.device)
         rejected = torch.zeros_like(accepted)

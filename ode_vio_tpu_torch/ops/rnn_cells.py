@@ -30,6 +30,13 @@ def init_cell(cell_type: str, input_size: int, hidden_size: int,
             for k, s in shapes.items()}
 
 
+def stack_layers(rnn) -> List[Cell]:
+    """The layers of an ``nn.RNN``/``nn.GRU`` as cells, its own tensors."""
+    return [{"w_ih": getattr(rnn, f"weight_ih_l{l}"), "w_hh": getattr(rnn, f"weight_hh_l{l}"),
+             "b_ih": getattr(rnn, f"bias_ih_l{l}"), "b_hh": getattr(rnn, f"bias_hh_l{l}")}
+            for l in range(rnn.num_layers)]
+
+
 def rnn_tanh_cell(p: Cell, x, h):
     return torch.tanh(x @ p["w_ih"].T + p["b_ih"] + h @ p["w_hh"].T + p["b_hh"])
 

@@ -13,12 +13,15 @@ statistics, trunk dropout through kernel K3), so autograd records none of
 it; with ``frozen_encoder_eval`` on top it runs its BatchNorm-folded
 inference graph instead. Every random draw of a step (one key per trunk
 dropout site, the Bernoulli masks, hard fusion's noise) comes from the
-train state's ``torch.Generator``. The step trains the ode-rnn, cde and
-rde pose cores; the cde/rde cores integrate through the bounded,
-differentiable CDE solve and never through kernel K2.
+train state's ``torch.Generator``. The step trains all six pose cores;
+the cde/rde cores integrate through the bounded, differentiable CDE solve
+and never through kernel K2.
 
-Not ported yet (ROADMAP.md, Queue 1 item 5c): the carried step
-(``carry=True``) and ``make_streaming_train_step``. Checkpoints are
+``make_train_step(cfg, carry=True)`` is the carried step of the
+carried-state exposure (``TrainConfig.carry_exposure``), and
+``make_streaming_train_step`` the full-sequence TBPTT step
+(``TrainConfig.tbptt_chain``): the hidden state crosses a window boundary
+detached, so the gradient stops there. Checkpoints are
 ``training/checkpoint.py``.
 """
 
@@ -31,6 +34,7 @@ import numpy as np
 import torch
 
 from ode_vio_tpu_torch.config import Config, resolve_device
+from ode_vio_tpu_torch.models.common import Carry
 from ode_vio_tpu_torch.models.deepvio import DeepVIO, require_ported
 from ode_vio_tpu_torch.models.encoders import ImageEncoder
 from ode_vio_tpu_torch.models.fold import fold_batchnorm_into_bias
@@ -167,18 +171,23 @@ def create_train_state(cfg: Config, model: DeepVIO, *, seed: Optional[int] = Non
     return TrainState(model, Optimizer(model, cfg), gen)
 
 
-def make_train_step(cfg: Config, *, device="cuda") -> Callable:
-    """Build ``train_step(state, img, imu, gts, ts) -> (state, metrics)``:
-    one forward, backward and optimizer update of ``state`` in place, on
-    ``device``. Inputs in the JAX package's layout (numpy or tensors): img
-    (B, S, H, W, 3), imu (B, 10*(S-1)+1, 6), gts (B, S-1, 6), ts (B, S).
-    ``metrics`` holds device tensors: ``loss``, ``angle_loss``,
-    ``trans_loss``, ``grad_norm`` (of this step's unclipped gradients) and
-    ``solver_incomplete`` (solves that ran out of ``max_steps_train``:
-    per layer and frame interval for ode-rnn, per segment for cde/rde).
-    Beyond the solver's early-exit checks nothing waits for the device."""
-    device = resolve_device(device)
-    require_ported(cfg.model.model_type)
+def detach_carry(hc: Optional[Carry]) -> Optional[Carry]:
+    """The carry with every leaf detached: it crosses a window boundary as
+    data, so no gradient (and no autograd graph) reaches earlier windows."""
+    if hc is None:
+        return None
+    if isinstance(hc, dict):
+        return {k: v.detach() for k, v in hc.items()}
+    return hc.detach()
+
+
+def _step_parts(cfg: Config, device: torch.device):
+    """What every train step shares: ``features(model, img, gen)``, the
+    visual features as the configuration computes them (the frozen
+    encoder's folded inference graph, the frozen encoder in train mode
+    under no_grad, or the trained encoder), and ``update(state, poses,
+    gts, incomplete)``, which takes the loss, its gradients and the
+    optimizer step and returns the metrics."""
     t = cfg.train
     frozen_eval = t.freeze_encoder and t.frozen_encoder_eval and not cfg.model.skip_bn
     if frozen_eval:
@@ -186,23 +195,20 @@ def make_train_step(cfg: Config, *, device="cuda") -> Callable:
             eval_image_net = ImageEncoder(dataclasses.replace(cfg.model, skip_bn=True))
         eval_image_net = eval_image_net.to_empty(device=device).eval()
 
-    def train_step(state: TrainState, img, imu, gts, ts) -> Tuple[TrainState, Dict]:
-        model, gen = state.model, state.generator
-        img, imu, gts, ts = (torch.as_tensor(a, dtype=torch.float32, device=device)
-                             for a in (img, imu, gts, ts))
+    def features(model: DeepVIO, img: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
         if frozen_eval:
             # the frozen encoder's inference graph, folded from its current
             # statistics, which it then leaves unchanged
             with torch.no_grad():
                 eval_image_net.load_state_dict(
                     fold_batchnorm_into_bias(model.Image_net.state_dict()))
-                fv = eval_image_net(img)
-        elif t.freeze_encoder:
+                return eval_image_net(img)
+        if t.freeze_encoder:
             with torch.no_grad():
-                fv = model.Image_net(img, gen)
-        else:
-            fv = model.Image_net(img, gen)
-        poses, _, stats = model.pose_from_visual(fv, imu, ts, generator=gen)
+                return model.Image_net(img, gen)
+        return model.Image_net(img, gen)
+
+    def update(state: TrainState, poses, gts, incomplete) -> Dict:
         angle = torch.mean((poses[..., :3] - gts[..., :3]) ** 2)
         trans = torch.mean((poses[..., 3:] - gts[..., 3:]) ** 2)
         loss = t.angle_loss_weight * angle + trans
@@ -212,11 +218,99 @@ def make_train_step(cfg: Config, *, device="cuda") -> Callable:
         grad_norm = global_norm(grads)
         state.optimizer.step(grads)
         state.step += 1
-        return state, {"loss": loss.detach(), "angle_loss": angle.detach(),
-                       "trans_loss": trans.detach(), "grad_norm": grad_norm,
-                       "solver_incomplete": stats.incomplete.sum()}
+        return {"loss": loss.detach(), "angle_loss": angle.detach(),
+                "trans_loss": trans.detach(), "grad_norm": grad_norm,
+                "solver_incomplete": incomplete}
+
+    def inputs(img, imu, gts, ts):
+        return tuple(torch.as_tensor(a, dtype=torch.float32, device=device)
+                     for a in (img, imu, gts, ts))
+
+    return features, update, inputs
+
+
+def carry_split(cfg: Config) -> int:
+    """The carried step's splice frame ``k``: ``carry_split`` or
+    ``(S-1)//2``. ValueError where a segment would hold fewer than
+    ``min_seg`` pose steps (2 for the path-based cde/rde cores, whose
+    one-knot path has no segment to interpolate, else 1)."""
+    S = cfg.model.seq_len
+    k = cfg.train.carry_split or (S - 1) // 2
+    min_seg = 2 if cfg.model.model_type in ("cde", "rde") else 1
+    if not min_seg <= k <= S - 1 - min_seg:
+        raise ValueError(
+            f"carry_split={k} out of range [{min_seg}, {S - 1 - min_seg}] for "
+            f"model_type={cfg.model.model_type} at seq_len={S} (each segment "
+            f"needs >= {min_seg} pose steps)")
+    return k
+
+
+def make_train_step(cfg: Config, carry: bool = False, *, device="cuda") -> Callable:
+    """Build ``train_step(state, img, imu, gts, ts) -> (state, metrics)``:
+    one forward, backward and optimizer update of ``state`` in place, on
+    ``device``. Inputs in the JAX package's layout (numpy or tensors): img
+    (B, S, H, W, 3), imu (B, 10*(S-1)+1, 6), gts (B, S-1, 6), ts (B, S).
+    ``metrics`` holds device tensors: ``loss``, ``angle_loss``,
+    ``trans_loss``, ``grad_norm`` (of this step's unclipped gradients) and
+    ``solver_incomplete`` (solves that ran out of ``max_steps_train``:
+    per layer and frame interval for ode-rnn, per segment for cde/rde; 0
+    for the rnn, cfc and ltc cores, which solve nothing). Beyond the
+    solver's early-exit checks nothing waits for the device.
+
+    With ``carry`` the step trains the carried regime
+    (``carry_exposure``): the visual features are computed once over the
+    window; segment 1 (pose steps ``0..k-1``, :func:`carry_split`) runs
+    fresh, its final hidden state is detached and seeds segment 2 (pose
+    steps ``k..S-2``), and the loss covers both segments' poses. The
+    inertial encoder runs once per segment, so its BatchNorm statistics
+    move twice."""
+    device = resolve_device(device)
+    require_ported(cfg.model.model_type)
+    features, update, inputs = _step_parts(cfg, device)
+    k = carry_split(cfg) if carry else None
+
+    def train_step(state: TrainState, img, imu, gts, ts) -> Tuple[TrainState, Dict]:
+        model, gen = state.model, state.generator
+        img, imu, gts, ts = inputs(img, imu, gts, ts)
+        fv = features(model, img, gen)
+        if k is None:
+            poses, _, stats = model.pose_from_visual(fv, imu, ts, generator=gen)
+            incomplete = stats.incomplete.sum()
+        else:
+            p1, hc, st1 = model.pose_from_visual(fv[:, :k], imu[:, :10 * k + 1], ts[:, :k + 1],
+                                                 generator=gen)
+            p2, _, st2 = model.pose_from_visual(fv[:, k:], imu[:, 10 * k:], ts[:, k:],
+                                                detach_carry(hc), generator=gen)
+            poses = torch.cat([p1, p2], dim=1)
+            incomplete = st1.incomplete.sum() + st2.incomplete.sum()
+        return state, update(state, poses, gts, incomplete)
 
     return train_step
+
+
+def make_streaming_train_step(cfg: Config, *, device="cuda") -> Callable:
+    """Build the full-sequence TBPTT step ``step(state, img, imu, gts, ts,
+    hc=None) -> (state, metrics, hc_out)``: the train step of
+    :func:`make_train_step` from the carried hidden state ``hc`` (``None``
+    starts a chain cold and is the fresh step). ``hc_out``, the window's
+    final hidden state, comes back detached leaf by leaf, so the next
+    window's gradient stops at the boundary (a window-length truncation
+    horizon; the state's horizon is the chain). The caller resets the
+    carry every ``tbptt_chain`` steps, where ``StreamingChainSampler``
+    starts its chains."""
+    device = resolve_device(device)
+    require_ported(cfg.model.model_type)
+    features, update, inputs = _step_parts(cfg, device)
+
+    def step(state: TrainState, img, imu, gts, ts, hc: Optional[Carry] = None):
+        model, gen = state.model, state.generator
+        img, imu, gts, ts = inputs(img, imu, gts, ts)
+        fv = features(model, img, gen)
+        poses, h_T, stats = model.pose_from_visual(fv, imu, ts, hc, generator=gen)
+        metrics = update(state, poses, gts, stats.incomplete.sum())
+        return state, metrics, detach_carry(h_T)
+
+    return step
 
 
 def make_infer_fn(model: DeepVIO, state_dict: Optional[Dict[str, torch.Tensor]] = None,

@@ -14,7 +14,9 @@ from ode_vio_tpu_torch.models.convert import from_jax_variables
 from ode_vio_tpu_torch.models.deepvio import DeepVIO
 from ode_vio_tpu_torch.models.fold import fold_batchnorm_into_bias
 
-from torch_port_helpers import configs, jax_model
+from torch_port_helpers import configs, jax_model, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.fixture(scope="module", params=["cat", "soft", "hard"])

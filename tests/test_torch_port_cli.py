@@ -22,7 +22,9 @@ from ode_vio_tpu_torch.cli.test import main as cli_test_main
 from ode_vio_tpu_torch.cli.train import main as train_main
 from ode_vio_tpu_torch.utils import geometry as geo
 
-from torch_port_helpers import configs, jax_model
+from torch_port_helpers import configs, jax_model, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SEQ_LEN, IMG_H, IMG_W = 4, 32, 64
 MODEL = dict(seq_len=SEQ_LEN, img_h=IMG_H, img_w=IMG_W)
@@ -147,8 +149,6 @@ UNPORTED_ARGS = {name: ([f"--{name}"] if unset is False else [f"--{name}", "3"])
 UNPORTED_ARGS.update({
     "eval_dp": ["--eval_dp", "2"],
     "mesh_data": ["--mesh_data", "4"],
-    "model_type_rnn": ["--model_type", "rnn"],
-    "model_type_cfc": ["--model_type", "cfc"],
 })
 # the Adams method strings, which the JAX package runs as fixed-grid Adams
 UNPORTED_ARGS.update({f"{flag}_{method}": [f"--{flag}", method]

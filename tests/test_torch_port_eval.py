@@ -21,7 +21,9 @@ from ode_vio_tpu_torch.models.convert import from_jax_variables
 from ode_vio_tpu_torch.models.deepvio import DeepVIO
 from ode_vio_tpu_torch.training.loop import make_infer_fn
 
-from torch_port_helpers import configs, jax_model
+from torch_port_helpers import configs, jax_model, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 METRICS = ("t_rel", "r_rel", "t_rmse", "r_rmse")
 

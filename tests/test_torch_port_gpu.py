@@ -294,3 +294,96 @@ def test_cli_train_checkpoint_restores_bitwise_on_gpu(tmp_path):
     assert same(state.optimizer.state_dict(), raw["optimizer"])
     assert state.step == raw["step"] > 0
     assert same(state.generator.get_state(), raw["generator"])
+
+
+def tiny_batch(n_seq, seed=0, t0=0.0):
+    """A seeded batch of 2 windows of ``n_seq`` frames on the card."""
+    gen = torch.Generator("cuda").manual_seed(seed)
+    img = torch.rand((2, n_seq, 32, 64, 3), generator=gen, device="cuda") - 0.5
+    imu = torch.randn((2, 10 * (n_seq - 1) + 1, 6), generator=gen, device="cuda")
+    gts = 0.1 * torch.randn((2, n_seq - 1, 6), generator=gen, device="cuda")
+    ts = t0 + torch.cumsum(0.08 + 0.05 * torch.rand((2, n_seq), generator=gen, device="cuda"), 1)
+    return img, imu, gts, ts
+
+
+@pytest.mark.gpu
+def test_carried_step_launches_k3_once_per_trunk_on_gpu():
+    """A tiny cde carried step on the card (the window split at k = 2): the
+    trunk runs once, so K3 launches 9 times, and no K2 in either segment;
+    finite loss."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from ode_vio_tpu_torch.config import Config, ModelConfig, TrainConfig
+    from ode_vio_tpu_torch.models.deepvio import create_model
+    from ode_vio_tpu_torch.training.loop import create_train_state, make_train_step
+
+    cfg = Config(model=ModelConfig(model_type="cde", **dict(TINY_TRAIN, seq_len=5)),
+                 train=TrainConfig(batch_size=2, freeze_encoder=True))
+    state = create_train_state(cfg, create_model(cfg, seed=0, train=True))
+    cuda_kernels.reset_launch_counts()
+    state, m = make_train_step(cfg, carry=True)(state, *tiny_batch(5, t0=7.0))
+    assert np.isfinite(float(m["loss"]))
+    assert cuda_kernels.fused_dropout.launches == 9
+    assert cuda_kernels.fused_cde_solve.launches == 0
+
+
+@pytest.mark.gpu
+def test_chained_step_memory_is_flat_on_gpu():
+    """A chain of 4 streaming steps on the card: the carry comes back
+    detached, so the device's peak memory of the 4th step is that of the
+    2nd (the first carried step), within 1 %."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from ode_vio_tpu_torch.config import Config, ModelConfig, TrainConfig
+    from ode_vio_tpu_torch.models.deepvio import create_model
+    from ode_vio_tpu_torch.training.loop import create_train_state, make_streaming_train_step
+
+    cfg = Config(model=ModelConfig(**TINY_TRAIN),
+                 train=TrainConfig(batch_size=2, freeze_encoder=True, tbptt_chain=4))
+    state = create_train_state(cfg, create_model(cfg, seed=0, train=True))
+    step = make_streaming_train_step(cfg)
+    hc, peaks = None, []
+    for i in range(4):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state, m, hc = step(state, *tiny_batch(4, seed=i, t0=0.4 * i), hc)
+        assert np.isfinite(float(m["loss"])) and not hc.requires_grad
+        peaks.append(torch.cuda.max_memory_allocated())
+    assert peaks[3] <= 1.01 * peaks[1], peaks
+
+
+@pytest.mark.gpu
+def test_rnn_engine_matches_cpu_on_gpu():
+    """The tiny rnn core (float32, TF32 off) behind StreamingEngine on the
+    card and on the CPU, the same weights and windows, a session carried
+    over three windows and one opened late: poses within 1e-4; K1 and K2
+    never launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from ode_vio_tpu_torch.config import Config, ModelConfig
+    from ode_vio_tpu_torch.models.deepvio import create_model
+    from ode_vio_tpu_torch.serving import StreamingEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = Config(model=ModelConfig(model_type="rnn", **TINY_TRAIN))
+    model = create_model(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(0)
+
+    def window(t0):
+        return (rng.random((4, 32, 64, 3), np.float32) - 0.5,
+                rng.standard_normal((31, 6)).astype(np.float32),
+                t0 + np.cumsum(rng.uniform(0.08, 0.13, 4)))
+
+    plan = [{0: window(0.0)}, {0: window(0.4), 1: window(3.0)}, {0: window(0.8), 1: window(3.4)}]
+    cuda_kernels.reset_launch_counts()
+    out = []
+    for device in ("cuda", "cpu"):
+        eng = StreamingEngine(model, max_sessions=2, device=device)
+        a, b = eng.open_session(), eng.open_session()
+        sids = {0: a, 1: b}
+        out.append([eng.step({sids[s]: w for s, w in step.items()}) for step in plan])
+    for got, want in zip(*out):
+        for sid in got:
+            np.testing.assert_allclose(got[sid], want[sid], rtol=0, atol=1e-4)
+    assert cuda_kernels.fused_ode_solve.launches == cuda_kernels.fused_cde_solve.launches == 0

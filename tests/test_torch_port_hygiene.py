@@ -32,6 +32,9 @@ def imported_roots(path: Path):
 def test_port_imports_nothing_of_jax():
     files = port_sources()
     assert len(files) > 10 and all(f.exists() for f in files)
+    pkg = ROOT / "ode_vio_tpu_torch"
+    assert {pkg / "ops" / "liquid.py", pkg / "models" / "pose_rnn.py",
+            pkg / "models" / "pose_ncp.py"} <= set(files)
     bad = {str(f.relative_to(ROOT)): r for f in files for r in imported_roots(f)
            if r in FORBIDDEN}
     assert not bad, f"forbidden imports: {bad}"
@@ -80,7 +83,7 @@ def test_entry_points_default_to_cuda_and_do_not_fall_back():
     from ode_vio_tpu_torch.models.deepvio import create_model
     from ode_vio_tpu_torch.serving import StreamingEngine
     from ode_vio_tpu_torch.training.loop import (create_train_state, make_infer_fn,
-                                                 make_train_step)
+                                                 make_streaming_train_step, make_train_step)
 
     cfg = Config(model=ModelConfig(img_h=64, img_w=128, seq_len=3, v_f_len=32,
                                    i_f_len=16, ode_hidden_dim=16,
@@ -94,6 +97,10 @@ def test_entry_points_default_to_cuda_and_do_not_fall_back():
         make_infer_fn(model)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make_train_step(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_train_step(cfg, carry=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_streaming_train_step(cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         create_train_state(cfg, model)
 
@@ -142,6 +149,24 @@ def test_cde_and_rde_models_default_to_cuda(model_type):
         create_model(cfg)
     model = create_model(cfg, device="cpu")
     assert model.cde_solver == cfg.cde_solver_cfg
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        StreamingEngine(model, max_sessions=2)
+
+
+@pytest.mark.parametrize("model_type", ["rnn", "cfc", "ltc"])
+def test_rnn_and_liquid_models_default_to_cuda(model_type):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid here")
+    from ode_vio_tpu_torch.config import Config, ModelConfig
+    from ode_vio_tpu_torch.models.deepvio import create_model
+    from ode_vio_tpu_torch.serving import StreamingEngine
+
+    cfg = Config(model=ModelConfig(model_type=model_type, img_h=64, img_w=128, seq_len=3,
+                                   v_f_len=32, i_f_len=16, rnn_hidden_dim=8,
+                                   compute_dtype="float32"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        create_model(cfg)
+    model = create_model(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         StreamingEngine(model, max_sessions=2)
 

@@ -25,7 +25,9 @@ from ode_vio_tpu_torch.models.fold import fold_batchnorm_into_bias
 from ode_vio_tpu_torch.ops import rnn_cells
 from ode_vio_tpu_torch.ops.mlp import softplus
 
-from torch_port_helpers import S, batch, configs, jax_model
+from torch_port_helpers import S, batch, configs, jax_model, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 ATOL = 1e-5
 B = 2

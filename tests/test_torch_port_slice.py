@@ -16,7 +16,9 @@ from ode_vio_tpu_torch.models.convert import from_jax_variables
 from ode_vio_tpu_torch.models.deepvio import DeepVIO
 from ode_vio_tpu_torch.serving import StreamingEngine
 
-from torch_port_helpers import configs, jax_model, window
+from torch_port_helpers import configs, jax_model, window, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def serve(engine, schedule):

@@ -19,6 +19,10 @@ from ode_vio_tpu_torch.ops import cuda_kernels
 from ode_vio_tpu_torch.ops.mlp import apply_mlp
 from ode_vio_tpu_torch.ops.solvers import SolverOptions, get_tableau, solve_ivp_dt
 
+from torch_port_helpers import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 # the tolerance tests/test_pallas.py holds the Pallas kernel to against the
 # XLA solver: f32 with sums taken in another order (XLA also contracts
 # a + b*c into one FMA, PyTorch on the CPU does not). The intervals are

@@ -624,8 +624,9 @@ def test_port_same_seed_same_loss(variables, trained):
 
 
 def test_train_step_refuses_other_pose_cores():
-    """A pose core the port lacks (rnn) is refused, naming its ROADMAP
-    item; cde and rde train (tests/test_torch_port_train_cde.py)."""
-    _, tc = configs({"model_type": "rnn"})
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 6"):
+    """A pose core the JAX package lacks is a ValueError naming the six it
+    has; every one of those six trains (tests/test_torch_port_train_cde.py,
+    tests/test_torch_port_cores.py)."""
+    _, tc = configs({"model_type": "lstm"})
+    with pytest.raises(ValueError, match="not supported; choose from .*ltc"):
         tloop.make_train_step(tc, device="cpu")

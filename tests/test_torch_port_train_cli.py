@@ -5,8 +5,9 @@ encoder's inference graph (no dropout: the frameworks' random bits
 differ); its checkpoints (a bitwise save/restore round trip, a run
 resumed at an epoch boundary equal to the run that did not stop); cde and
 rde epochs; the port's checkpoints as ``--pretrain`` of ``cli.test``;
-``--pretrain_flownet`` against JAX's ``convert_image_encoder``; and the
-refusals that remain (item 5c, JAX Orbax directories).
+``--pretrain_flownet`` against JAX's ``convert_image_encoder``; the
+item-5c flags reaching the config as JAX's; and the refusal of JAX Orbax
+directories.
 
 Tolerances: the logged per-epoch losses (six decimals) within rtol 1e-4,
 as the train step's own parity holds them (tests/test_torch_port_train.py);
@@ -29,6 +30,7 @@ from ode_vio_tpu.cli.train import main as jax_train_main
 from ode_vio_tpu.data.synthetic import make_kitti_tree
 from ode_vio_tpu.models.convert import convert_image_encoder, export_deepvio, trunk_out_hw
 from ode_vio_tpu.models.deepvio import init_model
+from ode_vio_tpu_torch.cli.flags import build_parser, config_from_args
 from ode_vio_tpu_torch.cli.test import main as cli_test_main
 from ode_vio_tpu_torch.cli.train import _warm_start_epoch, main as train_main
 from ode_vio_tpu_torch.config import Config, ModelConfig, TrainConfig
@@ -301,8 +303,12 @@ def test_orbax_directory_exits_with_hint(tree):
 
 @pytest.mark.parametrize("flag", [["--tbptt_chain", "2"], ["--carry_exposure", "0.5"],
                                   ["--carry_split", "3"]])
-def test_item_5c_flags_exit(tree, flag):
-    base, root = tree
-    with pytest.raises(SystemExit, match=r"Queue 1 item 5c"):
-        train_main(["--data_dir", str(root), "--save_dir", str(base / "r5c"), "--device", "cpu",
-                    *TINY_FLAGS, *flag])
+def test_item_5c_flags_exit(flag):
+    """The item-5c flags, once refused, now build the train fields that
+    JAX's ``config_from_args`` builds, away from their defaults."""
+    ref = jax_config_from_args(jax_build_parser().parse_args([*TINY_FLAGS, *flag]))
+    got = config_from_args(build_parser().parse_args([*TINY_FLAGS, *flag]))
+    fields = lambda c: (c.train.carry_exposure, c.train.carry_split,  # noqa: E731
+                        c.train.tbptt_chain)
+    default = config_from_args(build_parser().parse_args(TINY_FLAGS))
+    assert fields(got) == fields(ref) != fields(default)
