@@ -113,6 +113,18 @@ Phases, one line each, any failure ends the run with a non-zero exit:
           own forward, session 0's first two windows within 1e-4 of the
           same model on the CPU); cli.test on one sequence; 3 train steps
           at B=16 (9 K3 launches each). K1 and K2 never launch
+  solver_modes  the rest of the solver core at the flagship's widths on the
+          eval tree: one cli.train epoch of ode-rnn and of cde with --adjoint
+          and the same epoch without it (K3 9 a step, K1 / K2 only in the
+          evaluation; step p50, epoch wall, each step's peak memory, the
+          backward solves the adjoint truncated); one make_train_step batch
+          at B=16 (float32 encoders) through the adjoint and the bounded
+          solve, the pose core's field gradients compared (cosine >= 0.99
+          for ode-rnn) and the memory a pose-core forward keeps for its
+          backward; cli.test on sequence 05 with --ode_fixed_step and with
+          --model_type cde --cde_solver implicit_adams (no K1, no K2), the
+          first two windows card against CPU within 1e-4 (float32 encoders,
+          cde on windows x0.1) and one window served by StreamingEngine
   kernel_dropout  K3 fused_dropout against its plain PyTorch version, bit
           for bit (torch.equal), forward and backward (the autograd
           Function with the kernel and with the plain version): the nine
@@ -147,6 +159,7 @@ no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import logging
 import math
@@ -1640,16 +1653,19 @@ TBPTT_HW = (256, 512)        # written at the model's size: decode does no resiz
 
 def recording_factory(factory, log: list):
     """``factory`` (a train-step factory of cli.train) whose steps append
-    to ``log`` the device's peak memory of the step (reset just before)
-    and whether it was handed a carry."""
+    to ``log`` the device's peak memory of the step (reset just before),
+    that peak above the memory allocated when the step began, and whether
+    it was handed a carry."""
     def build(*args, **kwargs):
         step = factory(*args, **kwargs)
 
         def rec(state, *batch):
             torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
             out = step(state, *batch)
             float(out[1]["loss"])
-            log.append({"peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            peak = torch.cuda.max_memory_allocated()
+            log.append({"peak_gib": peak / 2 ** 30, "over_base_gib": (peak - base) / 2 ** 30,
                         "carried": len(batch) > 4 and batch[4] is not None})
             return out
 
@@ -1880,6 +1896,241 @@ def cores(dev, work: Path, root) -> dict:
     return {f"cores_train_{name}": r["k3"] for name, r in out.items()}
 
 
+# ---------------------------------------------------------------------------
+# The rest of the solver core: the continuous adjoint, the fixed-step and
+# Adams solves
+# ---------------------------------------------------------------------------
+
+FIELD_PREFIX = {"ode-rnn": "Pose_net.ode_func.", "cde": "Pose_net.cde_func."}
+ADJOINT_COSINE_MIN = 0.99    # ode-rnn's adjoint field gradient against the bounded one
+MODE_CPU_ATOL = 1e-4         # fixed-step and Adams poses, the card against the CPU
+
+
+def mode_config(model_type: str = "ode-rnn", adjoint: bool = False, **model_fields):
+    """The flagship's train configuration with ``model_type``'s core, the
+    continuous adjoint on or off (``--adjoint``'s fields)."""
+    cfg = train_config()
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, model_type=model_type, adjoint=adjoint,
+                                       **model_fields),
+        solver=dataclasses.replace(cfg.solver,
+                                   unroll_mode="adjoint" if adjoint else "bounded"))
+
+
+def record_grads(state) -> list:
+    """Wrap the state's optimizer so that each step's gradients are kept
+    by parameter name."""
+    opt = state.optimizer
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    seen, step = [], opt.step
+
+    def record(grads):
+        seen.append({names[id(p)]: g.detach().clone() for p, g in zip(opt.params, grads)})
+        step(grads)
+
+    opt.step = record
+    return seen
+
+
+def held_memory(model, batch, seed: int) -> dict:
+    """What one train-mode pose-core forward keeps for its backward (the
+    visual features computed without a graph, as the frozen encoder's are)
+    and the backward's peak above the memory before the forward, in GiB."""
+    img, imu, _, ts = batch
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        fv = model.Image_net(img, gen)
+    gc.collect()  # what earlier steps' reference cycles still hold is not this forward's
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    poses = model.pose_from_visual(fv, imu, ts, generator=gen)[0]
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    poses.square().sum().backward()
+    torch.cuda.synchronize()
+    backward_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() - base
+    model.zero_grad(set_to_none=True)
+    return {"held_gib": held / 2 ** 30, "backward_peak_gib": peak / 2 ** 30,
+            "backward_ms": backward_s * 1e3}
+
+
+def mode_epochs(name: str, model_type: str, dev, work: Path, root) -> dict:
+    """One cli.train epoch with --adjoint and the same epoch without it
+    (``model_type``'s core at the flagship's train configuration): K3 9 a
+    step, K1 (ode-rnn) or K2 (cde) only in the evaluation; each step's
+    peak memory and that peak above the memory allocated when the step
+    began, the backward solves the adjoint truncated."""
+    from ode_vio_tpu_torch.cli import train as train_module
+
+    cfg = train_config()
+    per_eval = (cfg.model.seq_len - 1, 0) if model_type == "ode-rnn" else (0, 1)
+    out = {}
+    for adjoint in (True, False):
+        key = "adjoint" if adjoint else "bounded"
+        flags = [*train_cli_flags(root, work / name, dev, 1, model_type),
+                 *(["--adjoint"] if adjoint else [])]
+        steps, evals = train_cli_counts(flags, (0,))
+        log, factory = [], train_module.make_train_step
+        train_module.make_train_step = recording_factory(factory, log)
+        truncated = odeint.adjoint_incomplete
+        gc.collect()  # what earlier runs' reference cycles still hold is not this run's
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        try:
+            timing, wall, n = run_train_cli(f"{name}_{key}", ["--experiment_name", key, *flags],
+                                            steps, evals, *per_eval)
+        finally:
+            train_module.make_train_step = factory
+        peaks = [r["peak_gib"] for r in log]
+        out[key] = {**epoch_report(cfg, timing)[0], "wall_s": wall, "launches": n,
+                    "eval_windows": evals[0], "peak_gib_by_step": peaks,
+                    "peak_step_gib": max(peaks),
+                    "over_base_gib_by_step": [r["over_base_gib"] for r in log],
+                    "peak_run_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                    "adjoint_backward_rows_truncated": odeint.adjoint_incomplete - truncated}
+        torch.cuda.empty_cache()
+    return out
+
+
+def adjoint_gradients(model_type: str, dev) -> dict:
+    """One make_train_step batch at B=16 (float32 encoders), through the
+    adjoint and through the bounded solve from the same init, batch and
+    generator: the pose core's field gradients compared (cosine, largest
+    difference over the bounded gradient's largest entry), each step's time,
+    peak memory and that peak above the memory allocated before it, and the
+    memory a pose-core forward holds for its backward."""
+    batch = train_batches(mode_config(model_type), 1, dev, SEED)[0]
+    grads, steps = {}, {}
+    for adjoint in (False, True):
+        cfg = mode_config(model_type, adjoint, compute_dtype="float32")
+        state = create_train_state(cfg, create_model(cfg, seed=SEED, device=dev, train=True),
+                                   device=dev)
+        seen = record_grads(state)
+        step = make_train_step(cfg, device=dev)
+        truncated = odeint.adjoint_incomplete
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        cuda_kernels.reset_launch_counts()      # this path's run starts here
+        t = time.perf_counter()
+        state, m = step(state, *batch)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        key = "adjoint" if adjoint else "bounded"
+        peak = torch.cuda.max_memory_allocated(dev)
+        steps[key] = {"ms": (time.perf_counter() - t) * 1e3, "loss": loss,
+                      "peak_gib": peak / 2 ** 30, "over_base_gib": (peak - base) / 2 ** 30,
+                      "k3": cuda_kernels.fused_dropout.launches,
+                      "k1_k2": [cuda_kernels.fused_ode_solve.launches,
+                                cuda_kernels.fused_cde_solve.launches],
+                      "adjoint_backward_rows_truncated": odeint.adjoint_incomplete - truncated,
+                      **held_memory(state.model, batch, SEED)}
+        grads[key] = torch.cat([g.flatten() for k, g in seen[0].items()
+                                if k.startswith(FIELD_PREFIX[model_type])]).double()
+        if not math.isfinite(loss):
+            raise AssertionError(f"solver_modes {model_type} {key}: loss {loss}")
+        check_launches(f"solver_modes {model_type} {key} K3", steps[key]["k3"], 9)
+        check_launches(f"solver_modes {model_type} {key} K1 + K2", sum(steps[key]["k1_k2"]), 0)
+        del state, step
+        torch.cuda.empty_cache()
+    a, b = grads["adjoint"], grads["bounded"]
+    cosine = float(a @ b / (a.norm() * b.norm()))
+    return {"cosine": cosine, "max_diff_over_max": float((a - b).abs().max() / b.abs().max()),
+            "norm_ratio": float(a.norm() / b.norm()), "steps": steps}
+
+
+def fixed_and_adams(dev, work: Path, root) -> dict:
+    """cli.test on sequence 05 with --ode_fixed_step (ode-rnn) and with
+    --model_type cde --cde_solver implicit_adams: no K1 and no K2 launch,
+    finite metrics; the first two windows card against CPU (float32
+    encoders; cde on windows x0.1, as core_cde); one window served through
+    StreamingEngine, again with no K1 and no K2."""
+    base = eval_config()
+    out = {}
+    for name, extra in (("fixed_step", ["--ode_fixed_step"]),
+                        ("implicit_adams", ["--model_type", "cde",
+                                            "--cde_solver", "implicit_adams"])):
+        flags = ["--data_dir", str(root), "--save_dir", str(work / "results"),
+                 *model_flags(base), *extra, "--val_seq", EVAL_SEQS[0], "--seed", str(SEED)]
+        cfg = config_from_args(build_parser().parse_args(flags))
+        solver = cfg.cde_solver_cfg if cfg.model.model_type == "cde" else cfg.solver
+        if odeint.SolverOptions.from_config(solver).adaptive:
+            raise AssertionError(f"solver_modes {name}: the flags build an adaptive solve")
+        cuda_kernels.reset_launch_counts()      # this path's run starts here
+        t = time.perf_counter()
+        cli_test_main(["--experiment_name", f"modes_{name}", "--device", str(dev), *flags])
+        cli_s = time.perf_counter() - t
+        cli_launches = [cuda_kernels.fused_ode_solve.launches,
+                        cuda_kernels.fused_cde_solve.launches]
+        summary = check_summary(f"solver_modes {name}", work / "results" /
+                                f"modes_{name}_test" / "summary.txt", EVAL_SEQS[:1])
+        cfg32 = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
+                                                                   compute_dtype="float32"))
+        wins = make_windows(cfg32, np.random.default_rng(SEED), 2, sessions=1)
+        if cfg.model.model_type == "cde":
+            wins = scaled(wins, CDE_CORE_SCALE)
+        model = create_model(cfg32, seed=SEED, device=dev)
+        cuda_kernels.reset_launch_counts()      # this path's run starts here
+        card = direct_poses(make_infer_fn(model, fold_bn=True, device=dev), wins[0])
+        engine = StreamingEngine(model, max_sessions=SESSIONS, fold_bn=True, device=dev)
+        sid = engine.open_session()
+        t = time.perf_counter()
+        served = engine.step({sid: wins[0][0]})[sid]
+        served_ms = (time.perf_counter() - t) * 1e3
+        launches = [cuda_kernels.fused_ode_solve.launches, cuda_kernels.fused_cde_solve.launches]
+        cpu = create_model(cfg32, device="cpu")
+        cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        cpu_poses = direct_poses(make_infer_fn(cpu, fold_bn=True, device="cpu"), wins[0])
+        gap = max(float(np.abs(a - b).max()) for a, b in zip(card, cpu_poses))
+        out[name] = {"model_type": cfg.model.model_type, "method": solver.method,
+                     "fixed_steps": solver.fixed_steps, "cli_test_s": cli_s,
+                     "cli_summary": summary, "cli_k1_k2": cli_launches,
+                     "direct_and_served_k1_k2": launches, "card_vs_cpu": gap,
+                     "served_window_ms": served_ms,
+                     "served_vs_direct": float(np.abs(served - card[0]).max()),
+                     "median_abs_pose": float(np.median(np.abs(np.stack(card))))}
+        check_launches(f"solver_modes {name} K1 + K2", sum(cli_launches) + sum(launches), 0)
+        if not gap <= MODE_CPU_ATOL or not np.isfinite(served).all():
+            raise AssertionError(f"solver_modes {name}: card vs CPU {gap} (limit "
+                                 f"{MODE_CPU_ATOL}), served {served}")
+        del engine, model, cpu
+        torch.cuda.empty_cache()
+    return out
+
+
+def solver_modes(dev, work: Path, root) -> dict:
+    """The continuous adjoint (ode-rnn and cde cli.train epochs against the
+    bounded ones, gradients against the bounded ones), the fixed-step and
+    Adams evaluations. Returns the launches by path."""
+    t = time.perf_counter()
+    epochs = {mt: mode_epochs(f"modes_{mt.replace('-', '')}", mt, dev, work, root)
+              for mt in ("ode-rnn", "cde")}
+    epochs_s = time.perf_counter() - t
+    grads = {mt: adjoint_gradients(mt, dev) for mt in ("ode-rnn", "cde")}
+    fixed = fixed_and_adams(dev, work, root)
+    phase("solver_modes", epochs=epochs, epochs_s=epochs_s, gradients=grads,
+          cosine_min_odernn=ADJOINT_COSINE_MIN, fixed_and_adams=fixed, cpu_atol=MODE_CPU_ATOL)
+    if not grads["ode-rnn"]["cosine"] >= ADJOINT_COSINE_MIN:
+        raise AssertionError(f"solver_modes: ode-rnn adjoint gradient cosine "
+                             f"{grads['ode-rnn']['cosine']} (< {ADJOINT_COSINE_MIN})")
+    n = {f"{mt}_{key}": r["launches"] for mt, e in epochs.items() for key, r in e.items()}
+    return {"k1": {f"solver_modes_{k}_eval": v["fused_ode_solve"] for k, v in n.items()
+                   if k.startswith("ode-rnn")} | {
+                f"solver_modes_{k}": v["cli_k1_k2"][0] + v["direct_and_served_k1_k2"][0]
+                for k, v in fixed.items()},
+            "k2": {f"solver_modes_{k}_eval": v["fused_cde_solve"] for k, v in n.items()
+                   if k.startswith("cde")} | {
+                f"solver_modes_{k}": v["cli_k1_k2"][1] + v["direct_and_served_k1_k2"][1]
+                for k, v in fixed.items()},
+            "k3": {**{f"solver_modes_{k}": v["fused_dropout"] for k, v in n.items()},
+                   "solver_modes_gradients": sum(s["k3"] for g in grads.values()
+                                                 for s in g["steps"].values())}}
+
+
 def main() -> None:
     seconds = {}
 
@@ -1912,18 +2163,19 @@ def main() -> None:
         tbptt = timed("train_tbptt", train_tbptt, dev, work, root)
         carry = timed("train_carry", train_carry, dev, work, root)
         k3_cores = timed("cores", cores, dev, work, root)
+        modes = timed("solver_modes", solver_modes, dev, work, root)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     k1_by_path = {"slice": k1_launches, **ev["launches"], "eval_cli": cli["k1"],
-                  **serve_launches, **tcli["k1"], **carry["k1"]}
+                  **serve_launches, **tcli["k1"], **carry["k1"], **modes["k1"]}
     k2_by_path["eval_cli_cde"] = cli["k2"]
     k2_by_path["train_cli_cde_eval"] = tcde["k2"]
     k2_by_path["train_tbptt_eval"] = tbptt["k2"]
-    k2_by_path.update(carry["k2"])
+    k2_by_path.update(carry["k2"], **modes["k2"])
     k3 = timed("kernel_dropout", kernel_dropout_check, dev)
     k3_by_path = timed("train", train_phases, dev)
     k3_by_path.update(tcli["k3"], train_cli_cde=tcde["k3"], train_rde=tcde["k3_rde"],
-                      train_tbptt=tbptt["k3"], **carry["k3"], **k3_cores)
+                      train_tbptt=tbptt["k3"], **carry["k3"], **k3_cores, **modes["k3"])
     phase("seconds", **seconds)
     print(json.dumps({"kernels": [
         {"name": "fused_ode_solve", "route": "cuda",

@@ -34,11 +34,7 @@ UNPORTED = {
     "profile_dir": (None, "Queue 1 item 7 (utils/profiling.py)"),
     "multihost": (False, "Queue 1 item 7 (parallel/mesh.py)"),
     "mesh_model": (1, "Queue 1 item 7 (parallel/mesh.py)"),
-    "adjoint": (False, "Queue 1 item 2 (the continuous adjoint)"),
-    "ode_fixed_step": (False, "Queue 1 item 2 (the fixed-step solvers)"),
 }
-# method strings of the fixed-grid Adams solvers, which are not ported
-ADAMS_METHODS = ("explicit_adams", "implicit_adams")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -245,11 +241,6 @@ def refuse_unported(args) -> None:
         if getattr(args, name) != unset:
             raise SystemExit(f"--{name} is not ported to ode_vio_tpu_torch "
                              f"yet (ROADMAP.md, {item})")
-    for name in ("ode_solver", "cde_solver"):
-        if getattr(args, name) in ADAMS_METHODS:
-            raise SystemExit(f"--{name} {getattr(args, name)}: the Adams solvers are not "
-                             "ported to ode_vio_tpu_torch yet (ROADMAP.md, Queue 1 item 2 "
-                             "(the fixed-step and Adams solvers))")
     if args.mesh_data not in (-1, 1):
         raise SystemExit("--mesh_data other than 1 is not ported to "
                          "ode_vio_tpu_torch yet (ROADMAP.md, Queue 1 item 7 "
@@ -293,6 +284,7 @@ def config_from_args(args) -> Config:
             cde_hidden_dim=args.cde_hidden_dim,
             cde_fn_num_layers=args.cde_fn_num_layers,
             cde_activation_fn=args.cde_activation_fn,
+            adjoint=args.adjoint,
             cde_interpolation=args.cde_interpolation,
             cde_streaming_mode=args.cde_streaming_mode,
             cde_history_cap=args.cde_history_cap,
@@ -307,6 +299,8 @@ def config_from_args(args) -> Config:
             method=args.ode_solver, rtol=args.ode_rtol, atol=args.ode_atol,
             max_steps=args.ode_max_steps,
             max_steps_train=args.ode_max_steps_train,
+            adaptive=not args.ode_fixed_step,
+            unroll_mode="adjoint" if args.adjoint else "bounded",
             exit_chunk=args.ode_exit_chunk,
         ),
         cde_solver_cfg=SolverConfig(

@@ -3,8 +3,8 @@
 The port's copy of the solver and model dataclasses of the JAX package
 (``ode_vio_tpu/config.py``): same field names, same defaults, so a
 configuration reads the same in both packages. Only the fields that a
-ported module reads are here; the others (the adjoint, the s2d and int8
-encoder rewrites, the mesh) come with the modules that read them.
+ported module reads are here; the others (the s2d and int8 encoder
+rewrites, the mesh) come with the modules that read them.
 
 One knob changes meaning: the JAX package's ``use_pallas`` tri-state
 becomes :attr:`ModelConfig.use_kernels`, the switch for the port's
@@ -36,17 +36,24 @@ class SolverConfig:
     """Adaptive solver operating point (ODE-RNN reference: dopri5, rtol
     1e-2, atol 1e-6, dt0 1e-4)."""
 
-    # an adaptive method with an error estimate: adaptive_heun | heun |
-    # midpoint | bosh3 | fehlberg2 | tsit5 | dopri5
+    # euler | heun | adaptive_heun | midpoint | bosh3 | fehlberg2 | rk4 |
+    # tsit5 | dopri5 (the adaptive solve needs an error estimate), or the
+    # fixed-grid Adams methods explicit_adams | implicit_adams, which
+    # ignore rtol/atol and always take the fixed-step solve
     method: str = "dopri5"
     rtol: float = 1e-2
     atol: float = 1e-6
     dt0: float = 1e-4
     max_steps: int = 64          # inference step budget per interval
-    # training's step budget per interval (the bounded, differentiable solve)
+    # training's step budget per interval (the bounded, differentiable
+    # solve, and both solves of the adjoint)
     max_steps_train: int = 16
+    adaptive: bool = True        # False: `fixed_steps` equal steps per interval
+    fixed_steps: int = 4
     # how training integrates: 'bounded' (masked steps recorded by
-    # autograd) or 'while' (the same in training); 'adjoint' is not ported
+    # autograd), 'while' (the same in training) or 'adjoint' (the
+    # continuous adjoint: a solve forward and a reverse solve of the
+    # augmented state backward, no solver intermediates kept)
     unroll_mode: str = "bounded"
     safety: float = 0.9          # step controller safety factor
     factor_min: float = 0.2      # max step shrink per step
@@ -82,6 +89,9 @@ class ModelConfig:
     cde_hidden_dim: int = 128
     cde_fn_num_layers: int = 3
     cde_activation_fn: str = "tanh"
+    # cde training through the continuous adjoint (cdeint_adjoint); the
+    # rde core ignores it, as in JAX
+    adjoint: bool = False
     cde_interpolation: str = "linear"   # linear | cubic (cubic-Hermite control path)
     # streaming eval: 'carry' continues from the last evaluated z;
     # 'history' re-integrates a ring buffer of the last `cde_history_cap`

@@ -16,16 +16,18 @@ feature times, and the states regress to per-step poses. Streaming modes
   have zero length;
 * ``reset``: every window starts fresh.
 
-In eval mode the solve runs kernel K2 (``ops/cuda_kernels.py::
+In eval mode the adaptive solve runs kernel K2 (``ops/cuda_kernels.py::
 fused_cde_solve``) when ``use_kernels`` resolves on (auto: CUDA tensors),
-else the solver core (``ops/interpolation.py::cdeint_batched``). In train
-mode (``self.training``) every window runs the training regime, whatever
+else the solver core (``ops/interpolation.py::cdeint_batched``); the
+fixed-step and Adams solves always run the solver core. In train mode
+(``self.training``) every window runs the training regime, whatever
 the streaming mode: the window clock ``ts - ts[:, :1]``, z0 from its first
 observation (or the carry given), and the solver core's bounded,
-differentiable solve (budget ``max_steps_train``). K2 has no backward, so
-a training forward never reaches it, on CUDA tensors too (JAX gates its
-fused kernel with ``not train`` alike). Every carry leaf has its lane on
-axis 0.
+differentiable solve (budget ``max_steps_train``), or with
+``ModelConfig.adjoint`` the continuous adjoint (``cdeint_adjoint``, no
+counts, as in JAX). K2 has no backward, so a training forward never
+reaches it, on CUDA tensors too (JAX gates its fused kernel with ``not
+train`` alike). Every carry leaf has its lane on axis 0.
 """
 
 from __future__ import annotations
@@ -38,20 +40,36 @@ from torch import nn
 from ode_vio_tpu_torch.config import ModelConfig, SolverConfig
 from ode_vio_tpu_torch.models.common import Carry, MLPField, PoseRegressor, SolveStats
 from ode_vio_tpu_torch.models.fusion import FusionModule
-from ode_vio_tpu_torch.ops.interpolation import cdeint_batched, cdeint_fused
+from ode_vio_tpu_torch.ops.interpolation import (cdeint_adjoint, cdeint_batched, cdeint_fused,
+                                                 make_path)
 from ode_vio_tpu_torch.ops.mlp import apply_cde_func, cde_func_sizes
-from ode_vio_tpu_torch.ops.solvers.odeint import SolverOptions
+from ode_vio_tpu_torch.ops.solvers.odeint import SolverOptions, Stats
 
 
 def cde_solver(field: MLPField, hidden: int, channels: int, kind: str,
-               solver: SolverConfig, use_kernels: bool, train: bool):
+               solver: SolverConfig, use_kernels: bool, train: bool, adjoint: bool = False):
     """``solve(z0, ts, xs, eval_ts) -> (zs, Stats)`` for the field ``g(z) =
     field(z).reshape(hidden, channels)`` on the paths ``make_path(ts, xs,
-    kind)``: with ``train`` the solver core's bounded solve, else kernel K2
-    (``use_kernels``) or the solver core's inference solve."""
+    kind)``: with ``train`` the solver core's bounded solve, or with
+    ``adjoint`` too the continuous adjoint (counts 0); else kernel K2
+    (``use_kernels``, adaptive options only) or the solver core's
+    inference solve."""
     layers = field.layers()
     opts = SolverOptions.from_config(solver, train=train)
-    if use_kernels and not train:
+    if adjoint and train:
+        params = [p for layer in layers for p in layer]
+
+        def apply(ps, z):
+            return apply_cde_func(list(zip(ps[::2], ps[1::2])), z, field.activation, hidden,
+                                  channels)
+
+        def solve_adjoint(z0, ts, xs, ev):
+            zs = cdeint_adjoint(make_path(ts, xs, kind), z0, ev, params, apply, opts)
+            zero = torch.zeros(z0.shape[0], dtype=torch.int32, device=z0.device)
+            return zs, Stats(zero, zero, zero)
+
+        return solve_adjoint
+    if use_kernels and not train and opts.adaptive:
         return lambda z0, ts, xs, ev: cdeint_fused(
             layers, field.activation, z0, ts, xs, ev, kind, opts)
     g = lambda z: apply_cde_func(layers, z, field.activation, hidden, channels)  # noqa: E731
@@ -110,7 +128,7 @@ class PoseCDE(nn.Module):
         obs = torch.cat([knots[..., None], x], dim=-1)          # (B, S-1, H+1)
         solve = cde_solver(self.cde_func, cfg.cde_hidden_dim, self.input_dim,
                            cfg.cde_interpolation, self.solver,
-                           cfg.resolved_use_kernels(obs.device), train)
+                           cfg.resolved_use_kernels(obs.device), train, cfg.adjoint)
         if history:
             return self._history_step(obs, prev, solve)
         z0 = torch.tanh(self.initial(obs[:, 0])) if prev is None else prev

@@ -8,10 +8,11 @@ compressed, piecewise-linear path integrates the latent state through
 the window's feature times. Streaming modes (``rde_streaming_mode``) as
 for PoseCDE; in ``history`` mode the ring buffer holds compressed-path
 knots, appended as a running sum of the windows' log-signatures so that
-the buffered path stays continuous. The solve runs kernel K2 or the
-solver core, and train mode runs the training regime through the bounded
-solve and never K2, as in PoseCDE. Every carry leaf has its lane on
-axis 0.
+the buffered path stays continuous. The solve runs kernel K2 (adaptive
+options only) or the solver core, and train mode runs the training regime
+through the bounded solve and never K2, as in PoseCDE. ``ModelConfig.
+adjoint`` does not reach this core: JAX's PoseRDE trains through the
+bounded solve whatever it says. Every carry leaf has its lane on axis 0.
 """
 
 from __future__ import annotations

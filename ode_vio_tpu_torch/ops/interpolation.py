@@ -8,20 +8,23 @@ shape ``(...)``, one time per path, and pick each path's segment as
 ``clip(searchsorted(ts, t, 'right') - 1, 0, T-2)``.
 
 The CDE ``dz = g(z) dX(t)`` reduces to the ODE ``z' = g(z) @ X'(t)``,
-solved per row on the port's solver core: the inference solve (``while``
-mode) or, for training, the bounded differentiable solve (``bounded``
-mode, ``solve_ivp_batched_dt``). The adjoint mode of the JAX module is
-not ported yet (ROADMAP.md, Queue 1 item 2).
+solved per row on the port's solver core through the evaluation times
+(``solve_at``): the inference solve (``while`` mode) or, for training,
+the bounded differentiable solve (``bounded`` mode,
+``solve_ivp_batched_dt``), whichever steps the options take (adaptive,
+fixed-step or Adams); or, with :func:`cdeint_adjoint`, the continuous
+adjoint (``solve_ivp_adjoint``), whose gradients reach the field's
+weights and every leaf of the path.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Sequence
 
 import torch
 
-from ode_vio_tpu_torch.ops.solvers.odeint import (SolverOptions, Stats, solve_ivp_batched_dt,
-                                                  solve_ivp_dt)
+from ode_vio_tpu_torch.ops.solvers.odeint import (SolverOptions, Stats, solve_at,
+                                                  solve_at_dt, solve_ivp_adjoint)
 
 
 class InterpolatedPath(NamedTuple):
@@ -96,35 +99,43 @@ def make_path(ts, xs, kind: str = "linear") -> InterpolatedPath:
     raise ValueError(f"unknown interpolation '{kind}'")
 
 
+def _field(func, path: InterpolatedPath):
+    """The ODE ``z' = func(z) @ X'(t)`` of the CDE on ``path``."""
+    def field(t, z):
+        return (func(z) @ path.derivative(t)[..., None])[..., 0]
+
+    return field
+
+
+def _segment_ts(path: InterpolatedPath, eval_ts: torch.Tensor) -> torch.Tensor:
+    """``[path.ts[:, 0]] + eval_ts``: the knots the solve runs through."""
+    return torch.cat([path.ts[:, :1], eval_ts], dim=1)
+
+
+def cdeint(path: InterpolatedPath, func: Callable[[torch.Tensor], torch.Tensor],
+           z0: torch.Tensor, ts_eval: torch.Tensor, opts: SolverOptions = SolverOptions()):
+    """Integrate ``dz = func(z) dX(t)`` for every row of ``z0`` (B, H) on
+    its own path (``path.ts`` (B, T); ``func(z)`` (B, H, C)) and return
+    ``z`` at each ``ts_eval`` (B, E), with the per-row counts summed over
+    segments: JAX's ``cdeint`` over rows, one :func:`solve_at`."""
+    return solve_at(_field(func, path), z0, _segment_ts(path, ts_eval), opts)
+
+
 def cdeint_path(func: Callable[[torch.Tensor], torch.Tensor], z0: torch.Tensor,
                 path: InterpolatedPath, eval_ts: torch.Tensor,
                 opts: SolverOptions = SolverOptions(), bounded: bool = False):
-    """Solve ``dz = func(z) dX(t)`` for every row of ``z0`` (B, H) on its
-    own path (``path.ts`` (B, T)) through ``[path.ts[:, 0]] + eval_ts``
-    (B, E), segment by segment: each segment a fresh solve with its own
-    ``max_steps`` budget, the step size carried over from the previous
-    one (``opts.dt0`` at the start). ``func(z)`` is (B, H, C).
-    ``bounded``: each segment is the training solve
-    (``solve_ivp_batched_dt``: an early-exit check per ``exit_chunk``
-    steps, recorded by autograd), else the inference solve.
+    """:func:`cdeint` through ``[path.ts[:, 0]] + eval_ts`` (B, E),
+    segment by segment: each segment a fresh solve with its own
+    ``max_steps`` budget, the step size the previous one returned carried
+    over (``opts.dt0`` at the start). ``bounded``: each segment is the
+    training solve (``solve_ivp_batched_dt``: an early-exit check per
+    ``exit_chunk`` steps, recorded by autograd), else the inference solve.
 
     Returns ``(zs (B, E, H), dt_final (B,), Stats)`` with the per-row
     counts summed over segments: the counterpart of ``cdeint_batched``,
     plus the last step proposal.
     """
-    def field(t, z):
-        return (func(z) @ path.derivative(t)[..., None])[..., 0]
-
-    solve = solve_ivp_batched_dt if bounded else solve_ivp_dt
-    seg_t0 = torch.cat([path.ts[:, :1], eval_ts[:, :-1]], dim=1)
-    z = z0
-    dt = torch.full((z0.shape[0],), opts.dt0, dtype=torch.float32, device=z0.device)
-    zs, acc, rej, inc = [], 0, 0, 0
-    for j in range(eval_ts.shape[1]):
-        z, dt, st = solve(field, z, seg_t0[:, j], eval_ts[:, j], opts, dt)
-        zs.append(z)
-        acc, rej, inc = acc + st.accepted, rej + st.rejected, inc + st.incomplete
-    return torch.stack(zs, dim=1), dt, Stats(acc, rej, inc)
+    return solve_at_dt(_field(func, path), z0, _segment_ts(path, eval_ts), opts, bounded)
 
 
 def cdeint_batched(func, z0, ts, xs, eval_ts, kind: str,
@@ -154,3 +165,27 @@ def cdeint_fused(layers, activation: str, z0, ts, xs, eval_ts, kind: str,
         max_steps=opts.max_steps, safety=opts.safety,
         factor_min=opts.factor_min, factor_max=opts.factor_max)
     return zs, Stats(acc, rej, inc)
+
+
+def cdeint_adjoint(path: InterpolatedPath, z0: torch.Tensor, ts_eval: torch.Tensor,
+                   field_params: Sequence[torch.Tensor], field_apply: Callable,
+                   opts: SolverOptions = SolverOptions()) -> torch.Tensor:
+    """The CDE solve of :func:`cdeint` with continuous-adjoint gradients
+    (JAX's ``cdeint_adjoint`` over rows; torchcde's ``adjoint=True`` with
+    the path's coefficients among the adjoint's parameters): one
+    :func:`~ode_vio_tpu_torch.ops.solvers.odeint.solve_ivp_adjoint` a
+    segment, each from a fresh ``opts.dt0``. ``field_apply(field_params,
+    z) -> (B, H, C)``. Gradients reach ``z0``, the field's parameters and
+    all five leaves of ``path`` (each row's own), so through its
+    coefficients the observations the path was built from. Returns ``zs``
+    (B, E, H); no counts (the adjoint hides its solves)."""
+    def func(t, z, params, lane):
+        return _field(lambda zz: field_apply(params, zz), InterpolatedPath(*lane))(t, z)
+
+    ts = _segment_ts(path, ts_eval)
+    z, zs = z0, []
+    for j in range(ts.shape[1] - 1):
+        z = solve_ivp_adjoint(func, opts, z, ts[:, j], ts[:, j + 1], tuple(field_params),
+                              tuple(path))
+        zs.append(z)
+    return torch.stack(zs, dim=1)

@@ -150,10 +150,6 @@ UNPORTED_ARGS.update({
     "eval_dp": ["--eval_dp", "2"],
     "mesh_data": ["--mesh_data", "4"],
 })
-# the Adams method strings, which the JAX package runs as fixed-grid Adams
-UNPORTED_ARGS.update({f"{flag}_{method}": [f"--{flag}", method]
-                      for flag in ("ode_solver", "cde_solver")
-                      for method in flags.ADAMS_METHODS})
 
 
 @pytest.mark.parametrize("name", sorted(UNPORTED_ARGS))
@@ -161,8 +157,7 @@ def test_unported_flag_exits(setup, name):
     """Every unported flag raises SystemExit naming its ROADMAP.md item,
     before any work is done, in every command line."""
     _, _, _, common = setup
-    item = "Queue 1 item 2" if "adams" in name else "ROADMAP.md"
     for main in (cli_test_main, serve_main, train_main):
-        with pytest.raises(SystemExit, match=item):
+        with pytest.raises(SystemExit, match="ROADMAP.md"):
             main(["--experiment_name", "unported", "--device", "cpu", *common,
                   *UNPORTED_ARGS[name]])

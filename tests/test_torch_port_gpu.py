@@ -387,3 +387,66 @@ def test_rnn_engine_matches_cpu_on_gpu():
         for sid in got:
             np.testing.assert_allclose(got[sid], want[sid], rtol=0, atol=1e-4)
     assert cuda_kernels.fused_ode_solve.launches == cuda_kernels.fused_cde_solve.launches == 0
+
+
+@pytest.mark.gpu
+def test_adjoint_ode_rnn_step_on_gpu():
+    """A tiny ode-rnn train step through the continuous adjoint on the
+    card: finite loss, the trunk's dropout through K3 (9 launches), and no
+    K1 (the adjoint solves on the solver core)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from ode_vio_tpu_torch.config import Config, ModelConfig, SolverConfig, TrainConfig
+    from ode_vio_tpu_torch.models.deepvio import create_model
+    from ode_vio_tpu_torch.training.loop import create_train_state, make_train_step
+
+    cfg = Config(model=ModelConfig(**TINY_TRAIN), solver=SolverConfig(unroll_mode="adjoint"),
+                 train=TrainConfig(batch_size=2, freeze_encoder=True))
+    state = create_train_state(cfg, create_model(cfg, seed=0, train=True))
+    cuda_kernels.reset_launch_counts()
+    state, m = make_train_step(cfg)(state, *tiny_batch(4))
+    assert np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"]))
+    assert cuda_kernels.fused_dropout.launches == 9
+    assert cuda_kernels.fused_ode_solve.launches == 0
+
+
+def eval_forward(model_type, solver_fields):
+    """A tiny model's eval forward on the card (kernels on) with the launch
+    counts set to 0 just before; returns (poses, K1, K2 launches)."""
+    from ode_vio_tpu_torch.config import Config, ModelConfig, SolverConfig
+    from ode_vio_tpu_torch.models.deepvio import create_model
+
+    solver = SolverConfig(**solver_fields)
+    cfg = Config(model=ModelConfig(model_type=model_type, use_kernels=True, **TINY_TRAIN),
+                 solver=solver, cde_solver_cfg=solver)
+    model = create_model(cfg, seed=0)
+    img, imu, _, ts = tiny_batch(4)
+    cuda_kernels.reset_launch_counts()
+    with torch.no_grad():
+        poses = model(img, imu, ts)[0]
+    return poses, cuda_kernels.fused_ode_solve.launches, cuda_kernels.fused_cde_solve.launches
+
+
+@pytest.mark.gpu
+def test_fixed_step_eval_launches_no_k1_on_gpu():
+    """A tiny ode-rnn eval forward with fixed steps on the card, kernels
+    on: no K1 launch (K1 is adaptive only), finite poses; the adaptive
+    forward launches K1 once per frame interval."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    poses, k1, k2 = eval_forward("ode-rnn", dict(adaptive=False))
+    assert torch.isfinite(poses).all() and (k1, k2) == (0, 0)
+    _, k1, _ = eval_forward("ode-rnn", {})
+    assert k1 == 3
+
+
+@pytest.mark.gpu
+def test_adams_cde_eval_launches_no_k2_on_gpu():
+    """A tiny cde eval forward with implicit_adams on the card, kernels on:
+    no K2 launch, finite poses; the adaptive forward launches K2 once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    poses, k1, k2 = eval_forward("cde", dict(method="implicit_adams"))
+    assert torch.isfinite(poses).all() and (k1, k2) == (0, 0)
+    _, _, k2 = eval_forward("cde", dict(rtol=1e-4))
+    assert k2 == 1

@@ -261,10 +261,19 @@ def test_bounded_solve_matches_jax(max_steps, exit_chunk):
 
 
 def test_adjoint_mode_is_not_ported():
+    """The adjoint mode, once refused, is now ported: ``from_config``
+    keeps ``unroll_mode='adjoint'`` with the training budget, as JAX's
+    does, and the plain solves refuse it as JAX's ``solve_ivp_dt`` does
+    (the adjoint needs its parameters explicitly: ``solve_ivp_adjoint``)."""
     cfg = tcfg.SolverConfig(unroll_mode="adjoint")
-    assert SolverOptions.from_config(cfg).max_steps == cfg.max_steps  # inference is fine
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SolverOptions.from_config(cfg, train=True)
+    opts = SolverOptions.from_config(cfg, train=True)
+    ref = JaxSolverOptions.from_config(jcfg.SolverConfig(unroll_mode="adjoint"), train=True)
+    assert (opts.unroll_mode, opts.max_steps) == (ref.unroll_mode, ref.max_steps) == (
+        "adjoint", cfg.max_steps_train)
+    assert SolverOptions.from_config(cfg).max_steps == cfg.max_steps
+    for solve in (odeint.solve_ivp_dt, solve_ivp_batched_dt):
+        with pytest.raises(ValueError, match="solve_ivp_adjoint"):
+            solve(lambda t, y: y, torch.zeros(2, 3), 0.0, 1.0, opts)
 
 
 # ---------------------------------------------------------------------------
