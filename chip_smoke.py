@@ -150,6 +150,27 @@ Phases, one line each, any failure ends the run with a non-zero exit:
   profile_train  one train step under torch.profiler: device busy and
           idle share, K3's and the convolutions' share, the solver's
           early-exit checks (host syncs)
+  encoders  the int8 and s2d encoders at the flagship's width (4 lanes of
+          10 frame pairs, 256x512, bf16, seed-0 weights): each of the nine
+          int8 trunk convs on its own input, the card's int32 sums (int8
+          im2col + torch._int_mm) equal to the plain version's (a float64
+          conv) bit for bit, timed with CUDA events beside the GEMM alone
+          and cuDNN's bf16 conv of the layer, with its bound; the int8
+          features against the float ones (correlation > 0.99); the trunk
+          int8 against bf16 as eval runs them; cli.test on sequence 05,
+          float and --encoder_int8 (K1 10 a window, the int8 GEMM 9 a
+          window); with encoder_s2d the trunk within 2e-2 of the direct
+          one's largest feature, conv1 and conv2 timed both ways, one train
+          step at B=16 (finite loss, K3 9 launches)
+  edges   train_cli's checkpoints directory through cli.export to .pth and
+          .npz (its model state without num_batches_tracked, bit for bit);
+          cli.test on sequence 05 from the .pth and from the directory,
+          poses bit for bit equal; cli.parity --torch_protocol of the .pth
+          on the three sequences (the report); one cli.train epoch with
+          --profile_dir, its trace holding K3's 36 kernel events of steps
+          1-4 and the convolutions'; a NaN in one IMU sample raising
+          FloatingPointError under --debug_nans and not without it;
+          analyse_flops of the flagship forward, device_memory_stats
   seconds  each phase's wall time
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero and prints
@@ -158,8 +179,10 @@ no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
+import io
 import json
 import logging
 import math
@@ -177,7 +200,10 @@ import torch
 
 import torch.nn.functional as F
 
+from ode_vio_tpu_torch.cli import test as cli_test_module
 from ode_vio_tpu_torch.cli.flags import build_parser, config_from_args
+from ode_vio_tpu_torch.cli.export import main as export_main
+from ode_vio_tpu_torch.cli.parity import main as parity_main
 from ode_vio_tpu_torch.cli.serve import main as serve_main
 from ode_vio_tpu_torch.cli.test import main as cli_test_main
 from ode_vio_tpu_torch.cli.train import main as train_main
@@ -186,8 +212,11 @@ from ode_vio_tpu_torch.data import native_loader
 from ode_vio_tpu_torch.data.evaluation import METRICS, EvalPartition, KittiEvaluator
 from ode_vio_tpu_torch.data.kitti import load_sequence
 from ode_vio_tpu_torch.data.synthetic import make_kitti_tree
-from ode_vio_tpu_torch.models.deepvio import DeepVIO, create_model
-from ode_vio_tpu_torch.models.encoders import TRUNK, TRUNK_NAMES
+from ode_vio_tpu_torch.models import encoders
+from ode_vio_tpu_torch.models.convert import load_reference_file
+from ode_vio_tpu_torch.models.deepvio import DeepVIO, analyse_flops, create_model
+from ode_vio_tpu_torch.models.encoders import TRUNK, TRUNK_NAMES, ImageEncoder
+from ode_vio_tpu_torch.models.fold import fold_batchnorm, fold_batchnorm_into_bias
 from ode_vio_tpu_torch.ops import cuda_kernels
 from ode_vio_tpu_torch.ops.interpolation import make_path
 from ode_vio_tpu_torch.ops.mlp import cde_func_sizes, init_mlp, ode_func_sizes
@@ -195,7 +224,7 @@ from ode_vio_tpu_torch.ops.solvers import get_tableau, odeint
 from ode_vio_tpu_torch.serving import StreamingEngine
 from ode_vio_tpu_torch.training.checkpoint import CheckpointManager
 from ode_vio_tpu_torch.training.loop import create_train_state, make_infer_fn, make_train_step
-from ode_vio_tpu_torch.utils import geometry
+from ode_vio_tpu_torch.utils import geometry, profiling
 
 SEED = 0
 SESSIONS = 4
@@ -2131,6 +2160,371 @@ def solver_modes(dev, work: Path, root) -> dict:
                                                  for s in g["steps"].values())}}
 
 
+# ---------------------------------------------------------------------------
+# The s2d and int8 encoders
+# ---------------------------------------------------------------------------
+
+INT8_OPS = 1979e12           # H100 SXM dense int8 tensor-core peak (data sheet)
+ENCODER_LANES = 4            # 4 lanes of one window (10 frame pairs), 256x512, bf16
+INT8_FLOAT_CORR_MIN = 0.99   # int8 against float features: JAX's bound (test_quant.py)
+# s2d and direct trunks in bf16 round their convs' sums apart: the largest
+# feature gap over the largest feature, as the bf16 encoders are held (2e-2)
+S2D_FEATURE_RTOL = 2e-2
+
+
+def image_net(sd: dict, dev, **model_fields) -> ImageEncoder:
+    """The flagship's image encoder with ``model_fields`` in eval mode on
+    the card, loaded from the Image_net entries of ``sd``."""
+    cfg = dataclasses.replace(eval_config().model, **model_fields)
+    net = ImageEncoder(cfg).to(dev).eval()
+    net.load_state_dict({k[len("Image_net."):]: v for k, v in sd.items()
+                         if k.startswith("Image_net.")})
+    return net
+
+
+def trunk_inputs(net, img) -> list:
+    """Each trunk block's input in ``net``'s forward of ``img``."""
+    seen = []
+    hooks = [getattr(net, name).register_forward_pre_hook(lambda mod, args: seen.append(args[0]))
+             for name in TRUNK_NAMES]
+    try:
+        with torch.no_grad():
+            net(img)
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen
+
+
+def int8_gemm_bound(a, b, xq) -> dict:
+    """The least time of one int8 conv's GEMM: 2 ops a product over the
+    int8 tensor-core peak, or its int8 input and kernel read once and its
+    int32 sums written once over the HBM rate."""
+    M, K = a.shape
+    ops = 2 * M * K * b.shape[0]
+    nbytes = xq.numel() + b.numel() + 4 * M * b.shape[0]
+    t = {"ops_ms": ops / INT8_OPS * 1e3, "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+    return {"bound_ms": max(t.values()),
+            "bound_by": "operations" if t["ops_ms"] >= t["bytes_ms"] else "bytes"}
+
+
+@torch.no_grad()
+def int8_convs(q, img) -> list:
+    """Each of the int8 trunk's nine convs on its own input of ``q``'s
+    forward of ``img``: the card's int32 sums against the plain version's
+    (bit for bit), and CUDA-event times of the route (im2col + GEMM), the
+    GEMM alone, the whole int8 conv and the cuDNN bf16 conv of the layer."""
+    rows = []
+    for name, x, (_, k, stride, _) in zip(TRUNK_NAMES, trunk_inputs(q, img), TRUNK):
+        pad = (k - 1) // 2
+        w = getattr(q, name)[0].weight
+        kq, _ = encoders.quantize_weight(w.float())
+        xq, _ = encoders.quantize_activation(x)
+        acc = encoders.int8_accumulate(xq, kq, stride, pad)
+        plain = encoders.int8_accumulate_plain(xq, kq, stride, pad)
+        torch.cuda.synchronize()
+        equal = torch.equal(acc, plain)
+        a, b, _ = encoders.int8_gemm_operands(xq, kq, stride, pad)
+        w16 = w.to(torch.bfloat16)
+        rows.append({"conv": name, "input": list(x.shape), "equal": equal,
+                     "max_abs_acc": int(plain.abs().max()), "gemm_mkn": [*a.shape, b.shape[0]],
+                     "route_ms": cuda_ms(lambda: encoders.int8_accumulate(xq, kq, stride, pad)),
+                     "gemm_ms": cuda_ms(lambda: torch._int_mm(a, b.t())),
+                     "int8_conv_ms": cuda_ms(lambda: encoders.int8_conv(x, w, stride, pad, True)),
+                     "cudnn_bf16_ms": cuda_ms(lambda: F.conv2d(x, w16, stride=stride,
+                                                               padding=pad)),
+                     **int8_gemm_bound(a, b, xq)})
+        if not equal:
+            raise AssertionError(f"encoders: {name}'s int8 sums differ from the plain version's "
+                                 f"(largest gap {int((acc - plain).abs().max())})")
+        del acc, plain, a, b
+    return rows
+
+
+def encoders_cli(dev, work: Path, root, pth: Path) -> dict:
+    """cli.test on sequence 05, float and --encoder_int8, from the flagship
+    .pth: finite metrics; K1 10 launches a window in both, the int8 GEMM 9
+    a window with --encoder_int8 and none without."""
+    cfg = eval_config()
+    windows = len(EvalPartition(root, EVAL_SEQS[0], cfg.model.seq_len))
+    common = ["--data_dir", str(root), "--save_dir", str(work / "results"), "--device", str(dev),
+              "--pretrain", str(pth), *model_flags(cfg), "--val_seq", EVAL_SEQS[0],
+              "--seed", str(SEED)]
+    out = {}
+    for name, extra, gemms in (("float", [], 0), ("int8", ["--encoder_int8"], 9 * windows)):
+        cuda_kernels.reset_launch_counts()      # this path's run starts here
+        encoders.int8_accumulate.launches = 0
+        t = time.perf_counter()
+        cli_test_main(["--experiment_name", f"encoders_{name}", *common, *extra])
+        wall = time.perf_counter() - t
+        k1, n = cuda_kernels.fused_ode_solve.launches, encoders.int8_accumulate.launches
+        check_launches(f"encoders cli.test {name} K1", k1, (cfg.model.seq_len - 1) * windows)
+        check_launches(f"encoders cli.test {name} int8 GEMM", n, gemms)
+        out[name] = {"wall_s": wall, "k1_launches": k1, "int8_gemm_launches": n,
+                     "summary": check_summary(f"encoders {name}", work / "results" /
+                                              f"encoders_{name}_test" / "summary.txt",
+                                              EVAL_SEQS[:1])[EVAL_SEQS[0]]}
+    return out
+
+
+def encoders_phase(dev, work: Path, root, pth: Path) -> dict:
+    """The int8 and s2d encoders at the flagship's width (4 lanes of 10
+    frame pairs, 256x512, bf16, seed-0 weights): the nine int8 convs' sums
+    against the plain version and their times beside cuDNN's bf16 convs;
+    int8 features against the float ones; the trunk int8 against bf16 as
+    eval runs them; cli.test --encoder_int8; s2d's trunk against the
+    direct convs, conv1/conv2 timed both ways, and one train step through
+    s2d (K3 9 launches). Returns the launches by path."""
+    cfg = eval_config()
+    m = cfg.model
+    sd = create_model(cfg, seed=SEED, device=dev).state_dict()
+    gen = torch.Generator(dev).manual_seed(SEED + 9)
+    img = torch.rand((ENCODER_LANES, m.seq_len, m.img_h, m.img_w, 3), generator=gen,
+                     device=dev) - 0.5
+    q = image_net(fold_batchnorm(sd), dev, encoder_int8=True)    # as eval runs int8
+    bf16 = image_net(fold_batchnorm_into_bias(sd), dev, skip_bn=True)  # as eval runs bf16
+    convs = int8_convs(q, img)
+    with torch.no_grad():
+        fq, ff = q(img), bf16(img)
+        trunk = {"int8_ms": cuda_ms(lambda: q(img), runs=10),
+                 "bf16_ms": cuda_ms(lambda: bf16(img), runs=10)}
+    corr = float(np.corrcoef(fq.cpu().numpy().ravel(), ff.cpu().numpy().ravel())[0, 1])
+    del q, bf16
+    cli = encoders_cli(dev, work, root, pth)
+
+    direct, s2d = image_net(sd, dev), image_net(sd, dev, encoder_s2d=True)
+    s2d_convs = []
+    with torch.no_grad():
+        fd, fs = direct(img), s2d(img)
+        for name, x in zip(TRUNK_NAMES[:2], trunk_inputs(direct, img)[:2]):
+            w = getattr(direct, name)[0].weight.to(torch.bfloat16)
+            pad = (w.shape[-1] - 1) // 2
+            s2d_convs.append({"conv": name, "input": list(x.shape),
+                              "direct_ms": cuda_ms(lambda: F.conv2d(x, w, stride=2, padding=pad)),
+                              "s2d_ms": cuda_ms(lambda: encoders.s2d_conv(x, w))})
+        trunk.update(direct_ms=cuda_ms(lambda: direct(img), runs=10),
+                     s2d_ms=cuda_ms(lambda: s2d(img), runs=10))
+    s2d_gap = float((fs - fd).abs().max() / fd.abs().max())
+    del direct, s2d, fd, fs
+    torch.cuda.empty_cache()
+
+    tcfg = train_config()
+    tcfg = dataclasses.replace(tcfg, model=dataclasses.replace(tcfg.model, encoder_s2d=True))
+    state = create_train_state(tcfg, create_model(tcfg, seed=SEED, device=dev, train=True),
+                               device=dev)
+    step = make_train_step(tcfg, device=dev)
+    batch = train_batches(tcfg, 1, dev, SEED)[0]
+    cuda_kernels.reset_launch_counts()          # this path's run starts here
+    t = time.perf_counter()
+    state, metrics = step(state, *batch)
+    loss = float(metrics["loss"])
+    step_ms = (time.perf_counter() - t) * 1e3
+    k3 = cuda_kernels.fused_dropout.launches
+    phase("encoders", lanes=ENCODER_LANES, frame_pairs=ENCODER_LANES * (m.seq_len - 1),
+          int8_convs=convs, int8_all_equal=all(c["equal"] for c in convs),
+          int8_sums={k: sum(c[k] for c in convs) for k in
+                     ("route_ms", "gemm_ms", "int8_conv_ms", "cudnn_bf16_ms", "bound_ms")},
+          int8_vs_float_corr=corr, corr_min=INT8_FLOAT_CORR_MIN, trunk=trunk, cli_test=cli,
+          s2d_feature_gap=s2d_gap, s2d_rtol=S2D_FEATURE_RTOL, s2d_convs=s2d_convs,
+          s2d_train={"batch": tcfg.train.batch_size, "loss": loss, "step_ms": step_ms,
+                     "k3_launches": k3})
+    check_launches("encoders s2d train step K3", k3, 9)
+    if not corr > INT8_FLOAT_CORR_MIN:
+        raise AssertionError(f"encoders: int8 vs float feature correlation {corr}")
+    if not s2d_gap <= S2D_FEATURE_RTOL:
+        raise AssertionError(f"encoders: s2d trunk {s2d_gap} of the direct one's largest "
+                             f"feature (limit {S2D_FEATURE_RTOL})")
+    if not math.isfinite(loss):
+        raise AssertionError(f"encoders: s2d train step loss {loss}")
+    del state, step, batch
+    torch.cuda.empty_cache()
+    return {"k1": {f"encoders_cli_{k}": v["k1_launches"] for k, v in cli.items()},
+            "k3": {"encoders_s2d_train": k3}}
+
+
+# ---------------------------------------------------------------------------
+# The single-card edges: export, parity, profiling, the NaN trap
+# ---------------------------------------------------------------------------
+
+# cuDNN's convolution kernels on Hopper, by the words their names carry
+CONV_KERNEL = re.compile(r"conv|fprop|dgrad|wgrad|xmma|implicit_gemm|cudnn|cutlass|winograd",
+                         re.IGNORECASE)
+
+
+def recorded_cli_test(argv: list) -> list:
+    """cli.test ``argv`` with the poses of every call of its inference
+    callable recorded (on the CPU)."""
+    log, real = [], cli_test_module.make_infer_fn
+
+    def factory(*args, **kwargs):
+        infer = real(*args, **kwargs)
+
+        def rec(img, imu, ts, carry=None, active=None):
+            poses, carry = infer(img, imu, ts, carry, active)
+            log.append(poses.cpu())
+            return poses, carry
+
+        for attr in ("incomplete", "incomplete_by_lane", "reset_incomplete", "set_variables",
+                     "device"):
+            setattr(rec, attr, getattr(infer, attr))
+        return rec
+
+    cli_test_module.make_infer_fn = factory
+    try:
+        cli_test_main(argv)
+    finally:
+        cli_test_module.make_infer_fn = real
+    return log
+
+
+def export_checks(dev, work: Path, root, ckpt: Path) -> dict:
+    """cli.export of train_cli's checkpoints directory to .pth and .npz:
+    the checkpoint's model state without num_batches_tracked, bit for bit;
+    cli.test on sequence 05 from the .pth and from the directory: poses
+    equal bit for bit (K1 10 a window each)."""
+    cfg = train_config()
+    flags = [*model_flags(cfg), "--device", str(dev)]
+    want = {k: v for k, v in CheckpointManager(ckpt).restore_raw("epoch_001")["model"].items()
+            if not k.endswith("num_batches_tracked")}
+    files = {}
+    for suffix in ("pth", "npz"):
+        out = work / f"edges.{suffix}"
+        t = time.perf_counter()
+        export_main([*flags, "--pretrain", str(ckpt), "--out", str(out)])
+        got = load_reference_file(out)
+        gaps = tensor_gaps(want, got) if got.keys() == want.keys() else {"keys": "differ"}
+        files[suffix] = {"s": time.perf_counter() - t, "bytes": out.stat().st_size,
+                         "tensors": len(got), "gaps": gaps or "bitwise equal"}
+        if gaps:
+            raise AssertionError(f"edges: the .{suffix} export differs: {gaps}")
+    windows = len(EvalPartition(root, EVAL_SEQS[0], cfg.model.seq_len))
+    poses, k1 = {}, {}
+    for name, pretrain in (("pth", work / "edges.pth"), ("dir", ckpt)):
+        cuda_kernels.reset_launch_counts()      # this path's run starts here
+        poses[name] = recorded_cli_test([
+            "--experiment_name", f"edges_{name}", "--data_dir", str(root),
+            "--save_dir", str(work / "results"), "--pretrain", str(pretrain), *flags,
+            "--val_seq", EVAL_SEQS[0], "--seed", str(SEED)])
+        k1[f"edges_cli_test_{name}"] = cuda_kernels.fused_ode_solve.launches
+        check_launches(f"edges cli.test {name} K1", k1[f"edges_cli_test_{name}"],
+                       (cfg.model.seq_len - 1) * windows)
+    equal = len(poses["pth"]) == len(poses["dir"]) == windows and all(
+        torch.equal(a, b) for a, b in zip(poses["pth"], poses["dir"]))
+    if not equal or not all(torch.isfinite(p).all() for p in poses["pth"]):
+        raise AssertionError("edges: cli.test from the .pth and from the directory differ")
+    return {"files": files, "cli_test_windows": windows, "pth_vs_dir_poses": "bitwise equal",
+            "k1": k1}
+
+
+def parity_check(dev, work: Path, root) -> dict:
+    """cli.parity --torch_protocol of the exported .pth on the three
+    sequences: its report (the port's tester in bf16, the reference
+    replica in float32), K1 10 a window of the port's side."""
+    cfg = train_config()
+    buf = io.StringIO()
+    cuda_kernels.reset_launch_counts()          # this path's run starts here
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = parity_main(["--data_dir", str(root), "--save_dir", str(work / "results"),
+                          *model_flags(cfg), "--device", str(dev), "--val_seq", *EVAL_SEQS,
+                          "--seed", str(SEED), "--ref_ckpt", str(work / "edges.pth"),
+                          "--torch_protocol"])
+    wall = time.perf_counter() - t
+    k1 = cuda_kernels.fused_ode_solve.launches
+    report = json.loads(buf.getvalue().strip().splitlines()[-1])
+    # the port's tester runs the three sequences as lanes: one launch a window step
+    steps = max(len(EvalPartition(root, s, cfg.model.seq_len)) for s in EVAL_SEQS)
+    check_launches("edges parity K1", k1, (cfg.model.seq_len - 1) * steps)
+    rows = report["rows"]
+    if rc != 0 or report["ref_source"] != "torch_protocol" or [r["seq"] for r in rows] != list(
+            EVAL_SEQS) or not all(math.isfinite(r[side][k]) for r in rows
+                                  for side in ("ours", "ref") for k in METRICS):
+        raise AssertionError(f"edges: cli.parity rc {rc}, report {report}")
+    return {"wall_s": wall, "rows": rows, "worst_delta_pct": report["worst_delta_pct"],
+            "k1": k1}
+
+
+def profile_check(dev, work: Path, root) -> dict:
+    """One cli.train epoch (8 steps, B=16) with --profile_dir: the trace of
+    steps 1-4 holds CUDA kernel events, K3's and the convolutions'."""
+    cfg = train_config()
+    flags = train_cli_flags(root, work / "edges_train", dev, epochs=1)
+    steps, evals = train_cli_counts(flags, (0,))
+    if steps[0] < 5:
+        raise AssertionError(f"edges: the profiled epoch has {steps[0]} steps (< 5)")
+    prof = work / "profile"
+    timing, wall, got = run_train_cli("edges_profile", [
+        "--experiment_name", "profiled", *flags, "--profile_dir", str(prof)],
+        steps, evals, cfg.model.seq_len - 1, 0)
+    (path,) = list(prof.glob("trace_*.json"))
+    events = json.loads(path.read_text())["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    k3_events = sum("fused_dropout" in n for n in kernels)
+    conv_events = sum(bool(CONV_KERNEL.search(n)) for n in kernels)
+    busy_ms = sum(e.get("dur", 0) for e in events if e.get("cat") == "kernel") / 1e3
+    out = {"steps": steps[0], "epoch": epoch_report(cfg, timing), "wall_s": wall,
+           "trace_bytes": path.stat().st_size, "events": len(events),
+           "kernel_events": len(kernels), "k3_kernel_events": k3_events,
+           "conv_kernel_events": conv_events, "kernel_busy_ms": busy_ms,
+           "launches": got}
+    if k3_events != 9 * 4 or not conv_events:
+        raise AssertionError(f"edges: the trace holds {len(kernels)} kernel events, K3 "
+                             f"{k3_events} (expected 36 for steps 1-4), convolutions "
+                             f"{conv_events}")
+    return out
+
+
+def nan_check(dev) -> dict:
+    """A flagship window with a NaN in one IMU sample through
+    make_infer_fn on the card: without --debug_nans it runs (the poses
+    hold NaN); with the flag it raises FloatingPointError."""
+    cfg = eval_config()
+    m = cfg.model
+    model = create_model(cfg, seed=SEED, device=dev)
+    infer = make_infer_fn(model, fold_bn=True, device=dev)
+    gen = torch.Generator(dev).manual_seed(SEED + 13)
+    img = torch.rand((1, m.seq_len, m.img_h, m.img_w, 3), generator=gen, device=dev) - 0.5
+    imu = torch.randn((1, 10 * (m.seq_len - 1) + 1, 6), generator=gen, device=dev)
+    ts = torch.cumsum(0.08 + 0.05 * torch.rand((1, m.seq_len), generator=gen, device=dev), 1)
+    imu[0, 17, 4] = float("nan")
+    poses, _ = infer(img, imu, ts)
+    off = {"raised": False, "poses_finite": bool(torch.isfinite(poses).all())}
+    try:
+        config_from_args(build_parser().parse_args(["--debug_nans"]))
+        infer(img, imu, ts)
+        on = {"raised": False}
+    except FloatingPointError as e:
+        on = {"raised": True, "message": str(e)}
+    finally:
+        profiling.set_debug_nans(False)
+    if not on["raised"]:
+        raise AssertionError("edges: --debug_nans did not raise on a NaN IMU sample")
+    return {"without_flag": off, "with_flag": on}
+
+
+def edges(dev, work: Path, root) -> dict:
+    """cli.export, cli.parity, --profile_dir, --debug_nans, analyse_flops
+    and device_memory_stats on the card, from train_cli's checkpoints
+    directory (2 epochs of the flagship). Returns the launches by path."""
+    ckpt = work / "train_cli" / "cont" / "checkpoints"
+    exported = export_checks(dev, work, root, ckpt)
+    parity = parity_check(dev, work, root)
+    profiled = profile_check(dev, work, root)
+    nans = nan_check(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    flops = analyse_flops(eval_config(), batch_size=1, device=dev)
+    stats = profiling.device_memory_stats(dev)
+    memory = {k: stats[k] for k in ("allocated_bytes.all.current", "allocated_bytes.all.peak",
+                                    "reserved_bytes.all.peak", "num_alloc_retries")}
+    phase("edges", export=exported, parity=parity, profile=profiled, debug_nans=nans,
+          analyse_flops={"flops": flops["flops"], "by_op": flops["by_op"]},
+          device_memory_stats=memory)
+    launches = profiled["launches"]
+    return {"k1": {**exported["k1"], "edges_parity": parity["k1"],
+                   "edges_profile_eval": launches["fused_ode_solve"]},
+            "k3": {"edges_profile": launches["fused_dropout"]}}
+
+
 def main() -> None:
     seconds = {}
 
@@ -2164,10 +2558,13 @@ def main() -> None:
         carry = timed("train_carry", train_carry, dev, work, root)
         k3_cores = timed("cores", cores, dev, work, root)
         modes = timed("solver_modes", solver_modes, dev, work, root)
+        enc = timed("encoders", encoders_phase, dev, work, root, cli["pth"])
+        edg = timed("edges", edges, dev, work, root)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     k1_by_path = {"slice": k1_launches, **ev["launches"], "eval_cli": cli["k1"],
-                  **serve_launches, **tcli["k1"], **carry["k1"], **modes["k1"]}
+                  **serve_launches, **tcli["k1"], **carry["k1"], **modes["k1"], **enc["k1"],
+                  **edg["k1"]}
     k2_by_path["eval_cli_cde"] = cli["k2"]
     k2_by_path["train_cli_cde_eval"] = tcde["k2"]
     k2_by_path["train_tbptt_eval"] = tbptt["k2"]
@@ -2175,7 +2572,8 @@ def main() -> None:
     k3 = timed("kernel_dropout", kernel_dropout_check, dev)
     k3_by_path = timed("train", train_phases, dev)
     k3_by_path.update(tcli["k3"], train_cli_cde=tcde["k3"], train_rde=tcde["k3_rde"],
-                      train_tbptt=tbptt["k3"], **carry["k3"], **k3_cores, **modes["k3"])
+                      train_tbptt=tbptt["k3"], **carry["k3"], **k3_cores, **modes["k3"],
+                      **enc["k3"], **edg["k3"])
     phase("seconds", **seconds)
     print(json.dumps({"kernels": [
         {"name": "fused_ode_solve", "route": "cuda",

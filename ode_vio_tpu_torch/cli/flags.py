@@ -2,8 +2,8 @@
 
 The port's copy of ``ode_vio_tpu/cli/flags.py``: the same flags under the
 same names and defaults, so a command line reads the same in both
-packages, and ``cli/test.py``, ``cli/serve.py`` and the training command
-line (``cli/train.py``) consume one parser. Two flags differ: ``--device`` (default
+packages, and ``cli/test.py``, ``cli/serve.py``, ``cli/train.py``,
+``cli/export.py`` and ``cli/parity.py`` consume one parser. Two flags differ: ``--device`` (default
 ``cuda``; the port's entry points run on the card unless asked for the
 CPU) and ``--use_kernels`` / ``--no-use_kernels`` in place of
 ``--use_pallas``.
@@ -29,9 +29,6 @@ from ode_vio_tpu_torch.config import (
 
 # flag -> (its value when not set, the ROADMAP.md item that ports it)
 UNPORTED = {
-    "encoder_int8": (False, "Queue 1 item 3 (the s2d and int8 encoders)"),
-    "debug_nans": (False, "Queue 1 item 7 (utils/profiling.py)"),
-    "profile_dir": (None, "Queue 1 item 7 (utils/profiling.py)"),
     "multihost": (False, "Queue 1 item 7 (parallel/mesh.py)"),
     "mesh_model": (1, "Queue 1 item 7 (parallel/mesh.py)"),
 }
@@ -88,7 +85,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--compute_dtype", type=str, default="bfloat16",
                    choices=["bfloat16", "float32"])
     p.add_argument("--encoder_int8", action="store_true",
-                   help="quantised int8 encoder inference (not ported)")
+                   help="quantised int8 encoder inference (eval-only; "
+                        "exact int32 sums, float checkpoints unchanged)")
     p.add_argument("--no_fold_bn", action="store_true",
                    help="disable inference-time BatchNorm folding "
                         "(models/fold.py; folding is exact at eval)")
@@ -113,7 +111,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "path (default auto: on for cuda, off on the cpu; "
                         "--no-use_kernels takes the PyTorch solver core)")
     p.add_argument("--debug_nans", action="store_true",
-                   help="fail fast on NaN/Inf (not ported)")
+                   help="raise FloatingPointError at the first module "
+                        "whose output holds a NaN, and detect anomalies in "
+                        "the backward (as jax_debug_nans, NaN only)")
 
     # ODE core
     p.add_argument("--ode_hidden_dim", type=int, default=512)
@@ -230,8 +230,9 @@ def build_parser() -> argparse.ArgumentParser:
 
     # profiling
     p.add_argument("--profile_dir", type=str, default=None,
-                   help="trace the first training steps into this "
-                        "directory (not ported)")
+                   help="write a torch.profiler trace (Chrome/Perfetto "
+                        "JSON) of training steps 1-4 of the first epoch "
+                        "into this directory")
     return p
 
 
@@ -260,7 +261,14 @@ def check_eval_dp(eval_dp: int, device: torch.device) -> None:
 
 
 def config_from_args(args) -> Config:
+    """The typed Config of the flags; ``--debug_nans`` turns the NaN trap
+    on for the whole process (``utils/profiling.py::set_debug_nans``), as
+    the JAX package sets ``jax_debug_nans``."""
     refuse_unported(args)
+    if args.debug_nans:
+        from ode_vio_tpu_torch.utils.profiling import set_debug_nans
+
+        set_debug_nans(True)
     return Config(
         experiment_name=args.experiment_name,
         save_dir=args.save_dir,
@@ -292,6 +300,7 @@ def config_from_args(args) -> Config:
             rde_history_cap=args.rde_history_cap,
             rde_reduced_dim=args.rde_reduced_dim,
             compute_dtype=args.compute_dtype,
+            encoder_int8=args.encoder_int8,
             use_kernels=args.use_kernels,
             fast_dropout=not args.exact_dropout,
         ),

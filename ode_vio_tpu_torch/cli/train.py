@@ -9,7 +9,8 @@ all six pose cores on one device, ``--device`` (default ``cuda``).
 ``--carry_exposure`` makes that share of the steps carried (the window
 split, its second segment seeded with the first's detached hidden state);
 ``--tbptt_chain N`` trains on windows in sequence order with the hidden
-state carried across chains of N steps.
+state carried across chains of N steps. ``--profile_dir`` writes a
+``torch.profiler`` trace of the first epoch's steps 1-4 there.
 
 ``--pretrain`` takes a reference-layout checkpoint file, which
 warm-starts the weights with a fresh optimizer, or a checkpoints directory
@@ -21,6 +22,7 @@ at an epoch boundary repeats the run that did not stop.
 
 from __future__ import annotations
 
+import contextlib
 import re
 import time
 from pathlib import Path
@@ -47,6 +49,7 @@ from ode_vio_tpu_torch.training.loop import (
     set_learning_rate,
 )
 from ode_vio_tpu_torch.utils.logging_utils import setup_experiment_directories, setup_logger
+from ode_vio_tpu_torch.utils.profiling import trace
 
 
 def get_train_loader(cfg: Config, epoch: int, logger) -> PrefetchingLoader:
@@ -77,37 +80,50 @@ def get_train_loader(cfg: Config, epoch: int, logger) -> PrefetchingLoader:
                              decode_threads=max(1, cfg.data.workers))
 
 
-def train_epoch(cfg: Config, loader, train_step, state, logger, epoch: int, steps=None):
+def train_epoch(cfg: Config, loader, train_step, state, logger, epoch: int, steps=None,
+                profile_dir=None):
     """One pass over ``loader``; returns the state and the mean loss.
     ``steps``, a list, receives each step's wall seconds (the step waited
     for), loss and truncated solves. Under ``tbptt_chain`` the hidden state
     threads from step to step and resets at every chain start (each
-    ``chain``-th step), where the sampler starts its chains."""
+    ``chain``-th step), where the sampler starts its chains. With
+    ``profile_dir``, epoch 0's steps 1-4 (after the first, which builds
+    the kernels) are traced into it (utils/profiling.py::trace), the trace
+    closed once step 4's loss is ready, or at the end of a shorter epoch."""
     losses = []
     chain = cfg.train.tbptt_chain
     hc = None
-    for it, batch in enumerate(loader):
-        t = time.perf_counter()
-        if chain:
-            if it % chain == 0:
-                hc = None
-            state, metrics, hc = train_step(state, *batch, hc)
-        else:
-            state, metrics = train_step(state, *batch)
-        losses.append(metrics["loss"])
-        if steps is not None:
-            loss = float(metrics["loss"])  # waits for the step
-            steps.append({"s": time.perf_counter() - t, "loss": loss,
-                          "solver_incomplete": int(metrics["solver_incomplete"])})
-        if (it + 1) % cfg.train.print_frequency == 0:
-            m = {k: float(v) for k, v in metrics.items()}
-            logger.info("epoch %d iter %d/%d loss %.6f angle %.6f trans %.6f", epoch, it + 1,
-                        len(loader), m["loss"], m["angle_loss"], m["trans_loss"])
-            if m["solver_incomplete"] > 0:
-                logger.warning(
-                    "epoch %d iter %d: %d ODE solves hit the step budget before t1 "
-                    "(truncated integral; raise max_steps_train or loosen tolerances)",
-                    epoch, it + 1, int(m["solver_incomplete"]))
+    traced = bool(profile_dir) and epoch == 0
+    profiling = contextlib.ExitStack()
+    with profiling:  # closes the trace of a short epoch, or of one that failed
+        for it, batch in enumerate(loader):
+            if traced and it == 1:
+                profiling.enter_context(trace(profile_dir))
+            t = time.perf_counter()
+            if chain:
+                if it % chain == 0:
+                    hc = None
+                state, metrics, hc = train_step(state, *batch, hc)
+            else:
+                state, metrics = train_step(state, *batch)
+            losses.append(metrics["loss"])
+            if steps is not None:
+                loss = float(metrics["loss"])  # waits for the step
+                steps.append({"s": time.perf_counter() - t, "loss": loss,
+                              "solver_incomplete": int(metrics["solver_incomplete"])})
+            if traced and it == 4:
+                float(metrics["loss"])  # the traced steps end on the device too
+                profiling.close()
+                logger.info("profiler trace written to %s", profile_dir)
+            if (it + 1) % cfg.train.print_frequency == 0:
+                m = {k: float(v) for k, v in metrics.items()}
+                logger.info("epoch %d iter %d/%d loss %.6f angle %.6f trans %.6f", epoch,
+                            it + 1, len(loader), m["loss"], m["angle_loss"], m["trans_loss"])
+                if m["solver_incomplete"] > 0:
+                    logger.warning(
+                        "epoch %d iter %d: %d ODE solves hit the step budget before t1 "
+                        "(truncated integral; raise max_steps_train or loosen tolerances)",
+                        epoch, it + 1, int(m["solver_incomplete"]))
     return state, float(np.mean([float(x) for x in losses])) if losses else 0.0
 
 
@@ -235,7 +251,8 @@ def main(argv=None, timing: dict | None = None) -> None:
         t0 = time.perf_counter()
         step = train_step if carried_step is None else _exposure_step(
             train_step, carried_step, cfg, epoch)
-        state, avg_loss = train_epoch(cfg, loader, step, state, logger, epoch, steps)
+        state, avg_loss = train_epoch(cfg, loader, step, state, logger, epoch, steps,
+                                      args.profile_dir)
         train_s = time.perf_counter() - t0
         logger.info("epoch %d done: loss %.6f (%.1fs)", epoch, avg_loss, train_s)
 

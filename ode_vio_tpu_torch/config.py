@@ -3,8 +3,8 @@
 The port's copy of the solver and model dataclasses of the JAX package
 (``ode_vio_tpu/config.py``): same field names, same defaults, so a
 configuration reads the same in both packages. Only the fields that a
-ported module reads are here; the others (the s2d and int8 encoder
-rewrites, the mesh) come with the modules that read them.
+ported module reads are here; the others (the mesh) come with the
+modules that read them.
 
 One knob changes meaning: the JAX package's ``use_pallas`` tri-state
 becomes :attr:`ModelConfig.use_kernels`, the switch for the port's
@@ -112,6 +112,13 @@ class ModelConfig:
     # set by the BatchNorm-folding inference path (models/fold.py): the
     # encoders carry the folded shift in their conv bias and run no BN
     skip_bn: bool = False
+    # the exact space-to-depth rewrite of the stride-2 convs with at most
+    # 64 input channels (conv1, conv2), in train and eval; same parameters
+    encoder_s2d: bool = False
+    # eval-only int8 encoder: per-output-channel int8 weights, per-lane
+    # dynamic int8 activations, exact int32 accumulation (models/encoders.py);
+    # training always takes the float convs, parameters stay float
+    encoder_int8: bool = False
     # The port's kernels (ops/cuda_kernels.py). None = auto: on for CUDA
     # tensors, off on the CPU. False takes the solver-core path
     # (ops/solvers/odeint.py), as use_pallas=False does in JAX.

@@ -188,9 +188,7 @@ def require_port_checkpoint(ckpt, name: str) -> None:
 def load_pretrain(model: torch.nn.Module, path) -> str:
     """Load a reference-layout checkpoint file, or the weights of a port
     checkpoints directory's latest epoch (else ``best``), into ``model``
-    (strict). BatchNorm ``num_batches_tracked`` counters, which the JAX
-    package's export leaves out, are taken as 0; inference never reads
-    them. Returns what was loaded."""
+    (strict, through :func:`load_checked`). Returns what was loaded."""
     path = Path(path)
     if path.is_dir():
         from ode_vio_tpu_torch.training.checkpoint import CheckpointManager
@@ -205,12 +203,21 @@ def load_pretrain(model: torch.nn.Module, path) -> str:
         sd = load_reference_file(path)
     else:
         raise SystemExit(f"--pretrain {path}: no such file")
+    load_checked(model, sd)
+    return str(path)
+
+
+def load_checked(model: torch.nn.Module, sd: Mapping[str, torch.Tensor]) -> None:
+    """Load a reference-layout state_dict into ``model`` (strict) after
+    :func:`check_structure`; BatchNorm ``num_batches_tracked`` counters,
+    which the JAX package's export leaves out, are taken as 0 (inference
+    never reads them)."""
+    sd = dict(sd)
     for k, v in model.state_dict().items():
         if k.endswith("num_batches_tracked") and k not in sd:
             sd[k] = torch.zeros_like(v, device="cpu")
     check_structure(sd, model)
     model.load_state_dict(sd, strict=True)
-    return str(path)
 
 
 def load_flownet(model: torch.nn.Module, path) -> List[str]:

@@ -103,3 +103,26 @@ def create_model(config: Config, *, seed: int = 0, device="cuda",
     model = DeepVIO(config.model, config.solver, config.cde_solver_cfg)
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(device).train(train)
+
+
+def analyse_flops(config: Config, batch_size: int = 1, *, device="cuda") -> dict:
+    """The FLOPs of one inference forward of ``config``'s model (seed-0
+    init) on zero inputs of ``batch_size`` windows, counted by
+    ``utils/profiling.py::flops_analysis`` (JAX's ``analyse_flops``; what
+    the count leaves out is said there)."""
+    from ode_vio_tpu_torch.utils.profiling import flops_analysis
+
+    device = resolve_device(device)
+    model = create_model(config, seed=0, device=device)
+    m = config.model
+    S = m.seq_len
+    img = torch.zeros(batch_size, S, m.img_h, m.img_w, 3, device=device)
+    imu = torch.zeros(batch_size, 10 * (S - 1) + 1, 6, device=device)
+    ts = (torch.arange(S, dtype=torch.float32, device=device) * 0.1).repeat(batch_size, 1)
+    gen = torch.Generator(device).manual_seed(0) if m.fuse_method == "hard" else None
+
+    def forward(img, imu, ts):
+        with torch.inference_mode():
+            return model(img, imu, ts, generator=gen)[0]
+
+    return flops_analysis(forward, img, imu, ts)

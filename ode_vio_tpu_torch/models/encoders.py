@@ -23,6 +23,14 @@ way to them, the variance biased; dropout draws from the ``generator``
 the forward is given: the conv trunk through kernel K3 when
 ``fast_dropout`` (``models/common.py::train_dropout``), the IMU encoder a
 Bernoulli mask.
+
+Two rewrites of the conv trunk, as in JAX, with the parameters unchanged:
+``encoder_s2d`` computes the stride-2 convs with at most 64 input channels
+as space-to-depth plus a stride-1 conv (:func:`s2d_conv`, exact), in train
+and eval; ``encoder_int8`` runs every trunk conv at eval through
+:func:`int8_conv`: int8 weights and activations, their products summed
+exactly in int32 (on the card an int8 im2col and ``torch._int_mm``, the
+int8 GEMM of cuBLASLt; XLA computed this conv outside any Pallas kernel).
 """
 
 from __future__ import annotations
@@ -87,12 +95,126 @@ def _bias(layer: nn.Module, dtype: torch.dtype):
     return None if layer.bias is None else layer.bias.to(dtype)
 
 
+def _s2d_weight(w: torch.Tensor) -> torch.Tensor:
+    """The (O, 4C, kh, kh) kernel, kh = (k+2)//2, of the stride-1 conv over
+    ``F.pixel_unshuffle(x, 2)`` (channel ``c*4 + ry*2 + rx`` holds
+    ``x[c, 2p+ry, 2q+rx]``) that equals the stride-2 conv of ``x`` with the
+    odd (O, C, k, k) kernel ``w`` at padding (k-1)//2. Tap ``a`` of phase
+    ``r`` is ``w``'s tap ``2(a-A) + r + P`` (P = (k-1)//2, A = (P+1)//2),
+    zero where that falls off the kernel; slices of ``w``, so gradients
+    reach it."""
+    O, C, k, _ = w.shape
+    P, kh = (k - 1) // 2, (k + 2) // 2
+    A = (P + 1) // 2
+    wp = F.pad(w, (1, 1, 1, 1))  # the taps off the kernel, -1 and k, read zeros
+    first = [r + P - 2 * A + 1 for r in (0, 1)]  # padded index of tap a = 0
+    phases = [torch.stack([wp[:, :, first[ry]::2, first[rx]::2][:, :, :kh, :kh]
+                           for rx in (0, 1)], 2) for ry in (0, 1)]
+    return torch.stack(phases, 2).reshape(O, 4 * C, kh, kh)
+
+
+def s2d_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The stride-2 conv of ``x`` (B, C, H, W; H and W even) with the odd
+    kernel ``w`` at padding (k-1)//2, as space-to-depth and a stride-1 conv
+    (JAX ``_space_to_depth_conv``): exact, padded ``A`` before and
+    ``kh-1-A`` after."""
+    k = w.shape[-1]
+    P, kh = (k - 1) // 2, (k + 2) // 2
+    A = (P + 1) // 2
+    x2 = F.pad(F.pixel_unshuffle(x, 2), (A, kh - 1 - A, A, kh - 1 - A))
+    return F.conv2d(x2, _s2d_weight(w).to(x.dtype))
+
+
+def quantize_weight(w: torch.Tensor):
+    """Symmetric int8 per output channel: ``(kq, kscale)`` with
+    ``kscale = max(max|w[o]|, 1e-8) / 127`` and ``kq = clip(round(w /
+    kscale), -127, 127)``; ``round`` is half to even, as ``jnp.round``."""
+    kscale = torch.clamp_min(w.abs().amax(dim=(1, 2, 3)), 1e-8) / 127.0
+    kq = torch.clamp(torch.round(w / kscale.reshape(-1, 1, 1, 1)), -127, 127)
+    return kq.to(torch.int8), kscale
+
+
+def quantize_activation(x: torch.Tensor):
+    """Symmetric int8 with one dynamic scale per batch element, over (C, H,
+    W), in ``x``'s dtype: co-batched serving lanes stay independent."""
+    ascale = torch.clamp_min(x.abs().amax(dim=(1, 2, 3), keepdim=True), 1e-8) / 127.0
+    xq = torch.clamp(torch.round(x.float() / ascale), -127, 127)
+    return xq.to(torch.int8), ascale
+
+
+def int8_accumulate_plain(xq: torch.Tensor, kq: torch.Tensor, stride: int,
+                          pad: int) -> torch.Tensor:
+    """The int32 sums of the int8 conv (B, O, Ho, Wo): a float64 conv of
+    the integer values, exact since every sum is below 127^2 * 4,608 <
+    2^53, rounded (any conv algorithm lands within 0.5) and cast."""
+    acc = F.conv2d(xq.double(), kq.double(), stride=stride, padding=pad)
+    return acc.round().to(torch.int32)
+
+
+def int8_gemm_operands(xq: torch.Tensor, kq: torch.Tensor, stride: int, pad: int):
+    """The int8 GEMM of the conv: ``(a, b, (B, Ho, Wo))`` with ``a`` the
+    padded input's patches, taken with ``Tensor.unfold`` views and copied
+    once into (B*Ho*Wo, C*k*k) rows (c, dy, dx order), and ``b`` the
+    (O, C*k*k) kernel; K padded with zero columns to a multiple of 8 and M
+    with zero rows past 16, as ``torch._int_mm`` requires."""
+    O, C, k, _ = kq.shape
+    cols = F.pad(xq, (pad, pad, pad, pad)).unfold(2, k, stride).unfold(3, k, stride)
+    B, _, Ho, Wo = cols.shape[:4]
+    a = cols.permute(0, 2, 3, 1, 4, 5).reshape(B * Ho * Wo, C * k * k)
+    b = kq.reshape(O, C * k * k)
+    M, K = a.shape
+    pad_k, pad_m = -K % 8, max(17 - M, 0)
+    if pad_k or pad_m:
+        a = F.pad(a, (0, pad_k, 0, pad_m))
+        b = F.pad(b, (0, pad_k))
+    return a, b, (B, Ho, Wo)
+
+
+def int8_accumulate(xq: torch.Tensor, kq: torch.Tensor, stride: int,
+                    pad: int) -> torch.Tensor:
+    """:func:`int8_accumulate_plain`'s sums. On a CUDA tensor: the
+    :func:`int8_gemm_operands` through ``torch._int_mm`` (int32 out), each
+    GEMM counted in ``int8_accumulate.launches``. On a CPU tensor: the
+    plain version."""
+    if xq.device.type == "cpu":
+        return int8_accumulate_plain(xq, kq, stride, pad)
+    if xq.device.type != "cuda":
+        raise ValueError(f"int8_accumulate runs on cuda or cpu, not {xq.device}")
+    if xq.dtype != torch.int8 or kq.dtype != torch.int8 or kq.shape[0] % 8:
+        raise ValueError(f"int8_accumulate takes int8 tensors and a multiple of 8 output "
+                         f"channels, got {xq.dtype}, {kq.dtype}, O={kq.shape[0]}")
+    a, b, (B, Ho, Wo) = int8_gemm_operands(xq, kq, stride, pad)
+    acc = torch._int_mm(a, b.t())
+    int8_accumulate.launches += 1
+    return acc[:B * Ho * Wo].reshape(B, Ho, Wo, -1).permute(0, 3, 1, 2)
+
+
+int8_accumulate.launches = 0
+
+
+def int8_conv(x: torch.Tensor, w: torch.Tensor, stride: int, pad: int,
+              use_kernels: bool) -> torch.Tensor:
+    """The eval-time int8 conv (JAX ``_int8_conv``): ``w`` quantized per
+    output channel, ``x`` per batch element, the int32 sums scaled back by
+    ``ascale * kscale`` (that product first) in float32 and cast to
+    ``x``'s dtype. ``use_kernels``: the sums through
+    :func:`int8_accumulate`, else its plain version."""
+    kq, kscale = quantize_weight(w.float())
+    xq, ascale = quantize_activation(x)
+    accumulate = int8_accumulate if use_kernels else int8_accumulate_plain
+    acc = accumulate(xq, kq, stride, pad)
+    return (acc.float() * (ascale * kscale.reshape(1, -1, 1, 1))).to(x.dtype)
+
+
 class ConvBlock(nn.Sequential):
     """Conv2d (symmetric padding) + BatchNorm + LeakyReLU(0.1) + Dropout,
-    at the reference indices 0..3."""
+    at the reference indices 0..3. ``s2d``: the conv as :func:`s2d_conv`
+    where its stride is 2 and the input's H and W are even; ``int8``: at
+    eval, as :func:`int8_conv` (``s2d`` then does not apply)."""
 
     def __init__(self, c_in: int, c_out: int, kernel: int, stride: int,
-                 dropout: float, skip_bn: bool = False):
+                 dropout: float, skip_bn: bool = False, s2d: bool = False,
+                 int8: bool = False):
         super().__init__(
             nn.Conv2d(c_in, c_out, kernel, stride=stride,
                       padding=(kernel - 1) // 2, bias=skip_bn),
@@ -100,13 +222,19 @@ class ConvBlock(nn.Sequential):
             nn.LeakyReLU(0.1),
             nn.Dropout(dropout),
         )
+        self.s2d, self.int8 = s2d, int8
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
                 fast_dropout: bool = True, use_kernels: bool = False) -> torch.Tensor:
         conv, bn = self[0], self[1]
         dtype = x.dtype
-        x = F.conv2d(x, conv.weight.to(dtype), _bias(conv, dtype),
-                     conv.stride, conv.padding)
+        if self.int8 and not self.training:
+            x = int8_conv(x, conv.weight, conv.stride[0], conv.padding[0], use_kernels)
+        elif self.s2d and conv.stride[0] == 2 and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0:
+            x = s2d_conv(x, conv.weight.to(dtype))
+        else:
+            x = F.conv2d(x, conv.weight.to(dtype), _bias(conv, dtype),
+                         conv.stride, conv.padding)
         if isinstance(bn, nn.BatchNorm2d):
             x = _batchnorm_f32(x, bn).to(dtype)
         x = F.leaky_relu(x, 0.1)
@@ -125,8 +253,12 @@ class ImageEncoder(nn.Module):
         super().__init__()
         self.cfg = cfg
         c_in = 6
+        # the folded graph without BatchNorm (skip_bn) keeps the plain conv, as in JAX
+        variant = not cfg.skip_bn
         for name, (c_out, k, s, d) in zip(TRUNK_NAMES, trunk, strict=True):
-            self.add_module(name, ConvBlock(c_in, c_out, k, s, d, cfg.skip_bn))
+            s2d = variant and cfg.encoder_s2d and s == 2 and c_in <= 64
+            self.add_module(name, ConvBlock(c_in, c_out, k, s, d, cfg.skip_bn, s2d,
+                                            variant and cfg.encoder_int8))
             c_in = c_out
         h, w = trunk_out_hw(cfg.img_h, cfg.img_w)
         self.visual_head = nn.Linear(c_in * h * w, cfg.v_f_len)

@@ -37,7 +37,7 @@ from ode_vio_tpu_torch.config import Config, resolve_device
 from ode_vio_tpu_torch.models.common import Carry
 from ode_vio_tpu_torch.models.deepvio import DeepVIO, require_ported
 from ode_vio_tpu_torch.models.encoders import ImageEncoder
-from ode_vio_tpu_torch.models.fold import fold_batchnorm_into_bias
+from ode_vio_tpu_torch.models.fold import fold_batchnorm, fold_batchnorm_into_bias
 
 
 def lr_for_epoch(cfg: Config, epoch: int) -> float:
@@ -189,7 +189,10 @@ def _step_parts(cfg: Config, device: torch.device):
     gts, incomplete)``, which takes the loss, its gradients and the
     optimizer step and returns the metrics."""
     t = cfg.train
-    frozen_eval = t.freeze_encoder and t.frozen_encoder_eval and not cfg.model.skip_bn
+    # the fold targets the plain conv; the int8 and s2d encoders keep their own
+    m = cfg.model
+    frozen_eval = (t.freeze_encoder and t.frozen_encoder_eval
+                   and not (m.encoder_int8 or m.encoder_s2d or m.skip_bn))
     if frozen_eval:
         with torch.device("meta"):
             eval_image_net = ImageEncoder(dataclasses.replace(cfg.model, skip_bn=True))
@@ -323,7 +326,10 @@ def make_infer_fn(model: DeepVIO, state_dict: Optional[Dict[str, torch.Tensor]] 
     ``state_dict`` (default: ``model.state_dict()``). ``fold_bn=True``
     folds the BatchNorm statistics into the conv weights and biases
     (models/fold.py) and builds that copy with ``skip_bn=True``, so no
-    BatchNorm runs. ``infer.set_variables(state_dict)`` swaps the weights.
+    BatchNorm runs; with ``encoder_int8`` or ``encoder_s2d``, whose convs
+    are not the plain one, it folds by value and keeps the BatchNorms as
+    identity plus shift (the int8 conv then quantizes the folded kernel).
+    ``infer.set_variables(state_dict)`` swaps the weights.
 
     Truncated solves are counted on the device per batch lane:
     ``infer.incomplete()`` is the running total and
@@ -335,16 +341,16 @@ def make_infer_fn(model: DeepVIO, state_dict: Optional[Dict[str, torch.Tensor]] 
     """
     device = resolve_device(device)
     cfg = model.cfg
-    strip_bn = fold_bn and not cfg.skip_bn
+    strip_bn = fold_bn and not (cfg.encoder_int8 or cfg.encoder_s2d or cfg.skip_bn)
     if strip_bn:
         cfg = dataclasses.replace(cfg, skip_bn=True)
     with torch.device("meta"):
         net = DeepVIO(cfg, model.solver, model.cde_solver)
     net = net.to_empty(device=device).eval()
+    fold = fold_batchnorm_into_bias if strip_bn else fold_batchnorm if fold_bn else dict
 
     def set_variables(sd: Dict[str, torch.Tensor]) -> None:
-        net.load_state_dict(fold_batchnorm_into_bias(sd) if strip_bn else sd,
-                            strict=True)
+        net.load_state_dict(fold(sd), strict=True)
 
     set_variables(model.state_dict() if state_dict is None else state_dict)
     hard = cfg.fuse_method == "hard"

@@ -1,5 +1,7 @@
 """Kernels K1 (fused_ode_solve), K2 (fused_cde_solve) and K3
-(fused_dropout) against their plain PyTorch versions on the card. These tests need a CUDA device and
+(fused_dropout) against their plain PyTorch versions on the card, and the
+paths that run only there: the int8 trunk convs' GEMM route, s2d, the
+export, traces and the NaN trap. These tests need a CUDA device and
 skip without one; this file imports no JAX, so on the GPU machine they run
 from the repository's root with
 
@@ -450,3 +452,135 @@ def test_adams_cde_eval_launches_no_k2_on_gpu():
     assert torch.isfinite(poses).all() and (k1, k2) == (0, 0)
     _, _, k2 = eval_forward("cde", dict(rtol=1e-4))
     assert k2 == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["conv1", "conv2", "conv3", "conv3_1", "conv6"])
+def test_int8_route_matches_plain_on_gpu(name):
+    """The int8 trunk conv's card route (int8 im2col, torch._int_mm) at the
+    block's shapes for 2 frame pairs at 64x128 (M past 16 rows, conv1's K
+    padded from 294 to 296): its int32 sums equal the plain version's bit
+    for bit, and the route launched once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: torch._int_mm runs on the card")
+    from ode_vio_tpu_torch.models import encoders
+
+    spec = dict(zip(encoders.TRUNK_NAMES, encoders.TRUNK))
+    c_in = dict(zip(encoders.TRUNK_NAMES, (6, 64, 128, 256, 256, 512, 512, 512, 512)))
+    c_out, k, stride, _ = spec[name]
+    hw = {"conv1": 64, "conv2": 32, "conv3": 16, "conv3_1": 8, "conv6": 2}[name]
+    gen = torch.Generator("cuda").manual_seed(1)
+    x = torch.randn(2, c_in[name], hw, 2 * hw, generator=gen, device="cuda")
+    w = 0.05 * torch.randn(c_out, c_in[name], k, k, generator=gen, device="cuda")
+    xq, _ = encoders.quantize_activation(x)
+    kq, _ = encoders.quantize_weight(w)
+    before = encoders.int8_accumulate.launches
+    got = encoders.int8_accumulate(xq, kq, stride, (k - 1) // 2)
+    torch.cuda.synchronize()
+    assert encoders.int8_accumulate.launches == before + 1
+    want = encoders.int8_accumulate_plain(xq, kq, stride, (k - 1) // 2)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_int8_and_s2d_encoders_on_gpu():
+    """The tiny image encoder on the card (float32, TF32 off): with s2d
+    within 1e-4 of the direct convs; with int8 (kernels on) 9 int8 GEMMs
+    and features equal to the plain int8 route's (use_kernels=False) bit
+    for bit, and close to the float features (correlation > 0.99)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: torch._int_mm runs on the card")
+    import dataclasses
+
+    from ode_vio_tpu_torch.config import Config, ModelConfig
+    from ode_vio_tpu_torch.models import encoders
+    from ode_vio_tpu_torch.models.deepvio import create_model
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = Config(model=ModelConfig(**TINY_TRAIN))
+    sd = create_model(cfg, seed=0).Image_net.state_dict()
+    img = tiny_batch(4)[0]
+
+    def features(**fields):
+        net = encoders.ImageEncoder(dataclasses.replace(cfg.model, **fields)).cuda().eval()
+        net.load_state_dict(sd)
+        with torch.no_grad():
+            return net(img)
+
+    direct = features()
+    torch.testing.assert_close(features(encoder_s2d=True), direct, rtol=0, atol=1e-4)
+    before = encoders.int8_accumulate.launches
+    int8 = features(encoder_int8=True, use_kernels=True)
+    assert encoders.int8_accumulate.launches == before + 9
+    assert torch.equal(int8, features(encoder_int8=True, use_kernels=False))
+    assert np.corrcoef(int8.cpu().numpy().ravel(), direct.cpu().numpy().ravel())[0, 1] > 0.99
+
+
+@pytest.mark.gpu
+def test_export_round_trip_on_gpu(tmp_path):
+    """A checkpoint of a model on the card through cli.export (.pth): the
+    file reloads into a model on the card whose state equals the
+    original's, and the key set has no num_batches_tracked."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ode_vio_tpu_torch.cli.export import main as export_main
+    from ode_vio_tpu_torch.config import Config, ModelConfig
+    from ode_vio_tpu_torch.models.convert import load_pretrain
+    from ode_vio_tpu_torch.models.deepvio import create_model
+    from ode_vio_tpu_torch.training.checkpoint import CheckpointManager
+    from ode_vio_tpu_torch.training.loop import create_train_state
+
+    cfg = Config(model=ModelConfig(**TINY_TRAIN))
+    model = create_model(cfg, seed=4)
+    CheckpointManager(tmp_path / "ckpt").save("epoch_000", create_train_state(cfg, model))
+    flags = [a for k, v in TINY_TRAIN.items() for a in (f"--{k}", str(v))]
+    sd = export_main([*flags, "--pretrain", str(tmp_path / "ckpt"),
+                      "--out", str(tmp_path / "m.pth")])
+    assert not any(k.endswith("num_batches_tracked") for k in sd)
+    back = create_model(cfg, seed=5)
+    load_pretrain(back, tmp_path / "m.pth")
+    for k, v in model.state_dict().items():
+        assert torch.equal(back.state_dict()[k], v), k
+
+
+@pytest.mark.gpu
+def test_trace_holds_cuda_kernels_on_gpu(tmp_path):
+    """utils/profiling.py::trace around a conv and K3 on the card: the
+    trace JSON holds CUDA kernel events, K3's among them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import json
+
+    import torch.nn.functional as F
+
+    from ode_vio_tpu_torch.utils.profiling import trace
+
+    x = torch.randn(4, 6, 64, 128, device="cuda")
+    w = torch.randn(64, 6, 7, 7, device="cuda")
+    with trace(tmp_path):
+        y = F.conv2d(x, w, stride=2, padding=3)
+        cuda_kernels.fused_dropout(y.contiguous(), 7, 0.2)
+        torch.cuda.synchronize()
+    (path,) = list(tmp_path.glob("trace_*.json"))
+    kernels = [e["name"] for e in json.loads(path.read_text())["traceEvents"]
+               if e.get("cat") == "kernel"]
+    assert kernels and any("fused_dropout" in n for n in kernels)
+
+
+@pytest.mark.gpu
+def test_debug_nans_raises_on_gpu():
+    """A NaN in one IMU sample of a tiny model's forward on the card raises
+    FloatingPointError under the trap, and not without it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ode_vio_tpu_torch.config import Config, ModelConfig
+    from ode_vio_tpu_torch.models.deepvio import create_model
+    from ode_vio_tpu_torch.utils.profiling import debug_nans
+
+    model = create_model(Config(model=ModelConfig(**TINY_TRAIN)), seed=0)
+    img, imu, _, ts = tiny_batch(4)
+    imu[0, 5, 1] = float("nan")
+    with torch.no_grad():
+        model(img, imu, ts)
+        with debug_nans(), pytest.raises(FloatingPointError):
+            model(img, imu, ts)

@@ -34,7 +34,8 @@ def test_port_imports_nothing_of_jax():
     assert len(files) > 10 and all(f.exists() for f in files)
     pkg = ROOT / "ode_vio_tpu_torch"
     assert {pkg / "ops" / "liquid.py", pkg / "models" / "pose_rnn.py",
-            pkg / "models" / "pose_ncp.py"} <= set(files)
+            pkg / "models" / "pose_ncp.py", pkg / "cli" / "export.py", pkg / "cli" / "parity.py",
+            pkg / "reference" / "torch_tester.py", pkg / "utils" / "profiling.py"} <= set(files)
     bad = {str(f.relative_to(ROOT)): r for f in files for r in imported_roots(f)
            if r in FORBIDDEN}
     assert not bad, f"forbidden imports: {bad}"
@@ -171,7 +172,12 @@ def test_rnn_and_liquid_models_default_to_cuda(model_type):
         StreamingEngine(model, max_sessions=2)
 
 
-@pytest.mark.parametrize("command", ["test", "serve", "train"])
+# each command line's required flags; no file is read before the device
+REQUIRED = {"export": ["--pretrain", ".", "--out", "model.npz"],
+            "parity": ["--ref_ckpt", "model.pth"]}
+
+
+@pytest.mark.parametrize("command", ["test", "serve", "train", "export", "parity"])
 def test_command_lines_default_to_cuda(command):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is valid here")
@@ -179,4 +185,19 @@ def test_command_lines_default_to_cuda(command):
 
     main = importlib.import_module(f"ode_vio_tpu_torch.cli.{command}").main
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        main(["--data_dir", "synthetic", "--val_seq", "05"])
+        main(["--data_dir", "synthetic", "--val_seq", "05", *REQUIRED.get(command, [])])
+
+
+def test_reference_tester_defaults_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid here")
+    from ode_vio_tpu_torch.config import Config, ModelConfig
+    from ode_vio_tpu_torch.models.deepvio import analyse_flops
+    from ode_vio_tpu_torch.reference.torch_tester import build_reference_model
+
+    cfg = Config(model=ModelConfig(img_h=64, img_w=128, seq_len=3, v_f_len=32,
+                                   i_f_len=16, ode_hidden_dim=16))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_reference_model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        analyse_flops(cfg)
