@@ -171,6 +171,23 @@ Phases, one line each, any failure ends the run with a non-zero exit:
           1-4 and the convolutions'; a NaN in one IMU sample raising
           FloatingPointError under --debug_nans and not without it;
           analyse_flops of the flagship forward, device_memory_stats
+  mesh    data parallelism on the one card (parallel/mesh.py): train_mesh,
+          two ranks sharing cuda:0 over gloo (launch), the flagship's train
+          configuration at B=16 global (8 a rank) for 3 steps: K3 9 a step
+          on each rank, the ranks' states (model, optimizer, step,
+          generator) bit for bit equal after every step, their dropout keys
+          different; step p50 and peak memory per rank, the gradient's
+          all-reduce alone over gloo with its bytes; one float32 step
+          without dropout or weight decay against one process's at B=16
+          (loss and trained tensors within 1e-4 where the gradient clears
+          rounding). train_cli_mesh: cli.train --mesh_data 2 on the eval
+          tree for two epochs, then resumed from its epoch 0: epoch_001 bit
+          for bit; K3 9 a step a rank, K1 10 a window step of rank 0's
+          evaluation. eval_mesh: eval_runs of the three sequences twice (6
+          lanes) and StreamingEngine with 4 sessions over two replicas on
+          the card, in bf16 and float32, each lane against the unsplit run
+          within 1e-3 / 1e-5, K1 10 a window step a replica; the cde model
+          on 05 twice split over the replicas, K2 once a window a replica
   seconds  each phase's wall time
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero and prints
@@ -209,7 +226,7 @@ from ode_vio_tpu_torch.cli.test import main as cli_test_main
 from ode_vio_tpu_torch.cli.train import main as train_main
 from ode_vio_tpu_torch.config import flagship_config
 from ode_vio_tpu_torch.data import native_loader
-from ode_vio_tpu_torch.data.evaluation import METRICS, EvalPartition, KittiEvaluator
+from ode_vio_tpu_torch.data.evaluation import METRICS, EvalPartition, KittiEvaluator, eval_runs
 from ode_vio_tpu_torch.data.kitti import load_sequence
 from ode_vio_tpu_torch.data.synthetic import make_kitti_tree
 from ode_vio_tpu_torch.models import encoders
@@ -2525,6 +2542,439 @@ def edges(dev, work: Path, root) -> dict:
             "k3": {"edges_profile": launches["fused_dropout"]}}
 
 
+# -- mesh: data-parallel ranks and replicas ----------------------------------
+# The machine has one card: two ranks share cuda:0 over gloo (NCCL refuses
+# two ranks on one device), and the eval and serving replicas both sit on it.
+MESH_RANKS = 2
+MESH_STEPS = 3
+MESH_RUN_TIMES = 2           # eval_mesh: 3 sequences x 2 runs = 6 lanes
+# the 2-rank step against the one-process step at B=16 in float32 (PERF.md
+# section 2's card-against-CPU bound: cuDNN may pick other algorithms at B=8)
+MESH_STEP_RTOL = 1e-4
+# a split lane against the unsplit one: the batched-eval bound (bf16) and
+# float32's
+MESH_POSE_ATOL = {"bfloat16": 1e-3, "float32": 1e-5}
+ALLREDUCE_REPS = 5
+
+
+def state_digest(state) -> str:
+    """SHA-256 of a train state's model, optimizer, step and generator."""
+    import hashlib
+
+    h = hashlib.sha256()
+    tensors = list(state.model.state_dict().values())
+    for st in state.optimizer.inner.state.values():
+        tensors += [v for v in st.values() if isinstance(v, torch.Tensor)]
+    tensors += state.optimizer._mean or []
+    for t in tensors:
+        h.update(t.detach().cpu().reshape(-1).view(torch.uint8).numpy().tobytes())
+    h.update(state.generator.get_state().numpy().tobytes())
+    h.update(np.int64([state.step, state.optimizer.mini_step]).tobytes())
+    return h.hexdigest()
+
+
+def without_trunk_dropout(model):
+    """``model`` with its image trunk's dropout rates 0 (the same weights)."""
+    trunk0 = tuple((f, k, s, 0.0) for f, k, s, _ in TRUNK)
+    net = ImageEncoder(model.cfg, trunk0)
+    net.load_state_dict(model.Image_net.state_dict())
+    model.Image_net = net.to(next(model.parameters()).device).train(model.training)
+    return model
+
+
+def float32_step_config(cfg):
+    """``cfg`` in float32 without weight decay: where a (clipped) gradient
+    is the size of the decay term their sum is rounding, and Adam steps it
+    by +-lr either way (the CPU tests' trunk case drops it too)."""
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, compute_dtype="float32"),
+                               train=dataclasses.replace(cfg.train, weight_decay=0.0))
+
+
+def mesh_parity_state(cfg, dev, mesh=None):
+    """The float32 parity step's state: seed-0 weights, no trunk dropout."""
+    cfg32 = float32_step_config(cfg)
+    model = without_trunk_dropout(create_model(cfg32, seed=SEED, device=dev, train=True))
+    return cfg32, create_train_state(cfg32, model, device=dev, mesh=mesh)
+
+
+def train_mesh_rank(dev, cfg, steps: int) -> dict:
+    """One rank of train_mesh: ``steps`` steps of ``cfg`` at its rows of
+    seeded global batches (the counts set to 0 just before, read just
+    after), a digest of the state after each, the first key it mixes, the
+    peak memory, the time of the gradient's all-reduce alone; then one
+    float32 step without dropout, whose trained tensors rank 0 returns."""
+    from ode_vio_tpu_torch.models.common import RankKeys, draw_key
+    from ode_vio_tpu_torch.parallel.mesh import create_mesh, shard_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = torch.distributed.get_rank()
+    mesh = create_mesh(MESH_RANKS, 1)
+    state = create_train_state(cfg, create_model(cfg, seed=SEED, device=dev, train=True),
+                               device=dev, mesh=mesh)
+    step = make_train_step(cfg, device=dev, mesh=mesh)
+    batches = [shard_batch(mesh, b) for b in train_batches(cfg, steps, dev, SEED)]
+    gen = torch.Generator()
+    gen.set_state(state.generator.get_state())
+    key = draw_key(RankKeys(gen, mesh.coords["data"]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cuda_kernels.reset_launch_counts()          # this path's run starts here
+    rows = []
+    for b in batches:
+        t = time.perf_counter()
+        state, m = step(state, *b)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        rows.append({"ms": (time.perf_counter() - t) * 1e3, "loss": loss,
+                     "grad_norm": float(m["grad_norm"]), "digest": state_digest(state)})
+    launches = {k: getattr(cuda_kernels, k).launches
+                for k in ("fused_dropout", "fused_ode_solve", "fused_cde_solve")}
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    flat = torch.zeros(sum(p.numel() for p in state.optimizer.params), device=dev)
+    group = mesh.groups["data"]
+    times = []
+    for _ in range(ALLREDUCE_REPS):
+        torch.distributed.barrier()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        torch.distributed.all_reduce(flat, group=group)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    del state, step
+    torch.cuda.empty_cache()
+    cfg32, state32 = mesh_parity_state(cfg, dev, mesh)
+    batch = shard_batch(mesh, train_batches(cfg32, 1, dev, SEED + 1)[0])
+    _, m = make_train_step(cfg32, device=dev, mesh=mesh)(state32, *batch)
+    out = {"rank": rank, "rows_of_batch": mesh.coords["data"], "steps": rows, "key": key,
+           "launches": launches, "peak_memory_gib": peak, "allreduce_ms": times,
+           "allreduce_bytes": flat.numel() * flat.element_size(),
+           "parity_loss": float(m["loss"]), "parity_grad_norm": float(m["grad_norm"]),
+           "parity_digest": state_digest(state32)}
+    if rank == 0:
+        out["parity_state"] = trained_tensors(state32)
+    return out
+
+
+def trained_tensors(state) -> dict:
+    """The tensors a step moves: the optimizer's parameters and every
+    BatchNorm statistic, on the CPU."""
+    trained = {id(p) for p in state.optimizer.params}
+    names = {n for n, p in state.model.named_parameters() if id(p) in trained}
+    return {k: v.detach().cpu() for k, v in state.model.state_dict().items()
+            if k in names or "running" in k}
+
+
+def clear_gaps(got: dict, want: dict, grads: dict, rtol: float) -> dict:
+    """{name: worst |got - want| over rtol * |want| + 1e-6} where the
+    gradient clears rounding (exactly 0, or above 1e-3 of its tensor's
+    largest in tensors whose largest is above 1e-5 of the step's; the
+    CPU tests' rule: Adam steps a rounding-noise gradient by +-lr either
+    way), and over every running statistic; a value above 1 fails."""
+    top = max(float(g.abs().max()) for g in grads.values())
+    out = {}
+    for name, x in got.items():
+        ref = want[name].cpu()
+        mask = torch.ones(x.shape, dtype=torch.bool)
+        if name in grads:
+            g = grads[name].cpu()
+            big = float(g.abs().max())
+            mask = ((g == 0) | (g.abs() > 1e-3 * big)) & (big > 1e-5 * top)
+        if mask.any():
+            out[name] = float(((x - ref).abs() / (rtol * ref.abs() + 1e-6))[mask].max())
+    return out
+
+
+def train_mesh(dev, cfg, steps: int, k3_per_step: int) -> dict:
+    """``cfg``'s train step on MESH_RANKS ranks sharing ``dev`` over gloo
+    (parallel/mesh.py::launch), each on its rows of the seeded global
+    batches: K3 ``k3_per_step`` a step on every rank, the ranks' states
+    equal bit for bit after every step, their keys different; the float32
+    step without dropout against one process's at the global batch (loss,
+    global gradient norm and trained tensors within MESH_STEP_RTOL where
+    the gradient clears rounding). Returns K3's launches on all ranks and the report."""
+    from ode_vio_tpu_torch.parallel.mesh import launch
+
+    t = time.perf_counter()
+    ranks = launch(train_mesh_rank, [dev] * MESH_RANKS, cfg, steps, backend="gloo")
+    wall = time.perf_counter() - t
+    for r in ranks:
+        want = {"fused_dropout": k3_per_step * steps, "fused_ode_solve": 0, "fused_cde_solve": 0}
+        if r["launches"] != want:
+            raise AssertionError(f"train_mesh rank {r['rank']}: launches {r['launches']}, "
+                                 f"expected {want}")
+        if not all(math.isfinite(x["loss"]) for x in r["steps"]):
+            raise AssertionError(f"train_mesh rank {r['rank']}: losses {r['steps']}")
+    split_steps = [i for i, (a, b) in enumerate(zip(ranks[0]["steps"], ranks[1]["steps"]))
+                   if a["digest"] != b["digest"]]
+    if split_steps or ranks[0]["parity_digest"] != ranks[1]["parity_digest"]:
+        raise AssertionError(f"train_mesh: the ranks' states differ after steps {split_steps}")
+    if ranks[0]["key"] == ranks[1]["key"] or ranks[0]["rows_of_batch"] == ranks[1]["rows_of_batch"]:
+        raise AssertionError("train_mesh: the ranks drew one key or took the same rows")
+    # the one-process float32 step at the global batch, on the card
+    cfg32, state = mesh_parity_state(cfg, dev)
+    seen = record_grads(state)
+    batch = train_batches(cfg32, 1, dev, SEED + 1)[0]
+    _, m = make_train_step(cfg32, device=dev)(state, *batch)
+    loss, grad_norm = float(m["loss"]), float(m["grad_norm"])
+    gaps = clear_gaps(ranks[0]["parity_state"], trained_tensors(state), seen[0], MESH_STEP_RTOL)
+    loss_rel = abs(ranks[0]["parity_loss"] - loss) / abs(loss)
+    # Adam is nearly blind to the gradient's scale: the global norm shows
+    # that the ranks averaged their gradients over the whole data group
+    norm_rel = abs(ranks[0]["parity_grad_norm"] - grad_norm) / abs(grad_norm)
+    report = {"ranks": MESH_RANKS, "backend": "gloo", "device": str(dev),
+              "global_batch": cfg.train.batch_size, "steps": steps, "wall_s": wall,
+              "per_rank": [{"rank": r["rank"], "rows_of_batch": r["rows_of_batch"],
+                            "step_ms": [x["ms"] for x in r["steps"]],
+                            "p50_step_ms_after_first": statistics.median(
+                                x["ms"] for x in r["steps"][1:]),
+                            "losses": [x["loss"] for x in r["steps"]],
+                            "peak_memory_gib": r["peak_memory_gib"], "key": hex(r["key"]),
+                            "launches": r["launches"]} for r in ranks],
+              "grad_allreduce": {"backend": "gloo", "bytes": ranks[0]["allreduce_bytes"],
+                                 "ms": ranks[0]["allreduce_ms"],
+                                 "p50_ms": statistics.median(ranks[0]["allreduce_ms"])},
+              "states_bitwise_equal_every_step": True,
+              "parity_float32": {"loss_2_ranks": ranks[0]["parity_loss"], "loss_1_process": loss,
+                                 "loss_rel": loss_rel,
+                                 "grad_norm_2_ranks": ranks[0]["parity_grad_norm"],
+                                 "grad_norm_1_process": grad_norm, "grad_norm_rel": norm_rel,
+                                 "worst_tensor_gap_over_limit":
+                                 max(gaps.values()), "tensors": len(gaps)}}
+    if loss_rel > MESH_STEP_RTOL or norm_rel > MESH_STEP_RTOL or max(gaps.values()) > 1.0:
+        bad = {k: v for k, v in gaps.items() if v > 1.0}
+        raise AssertionError(f"train_mesh: 2 ranks against 1 process: loss rel {loss_rel}, "
+                             f"grad_norm rel {norm_rel}, tensors over the limit {bad}")
+    del state
+    torch.cuda.empty_cache()
+    return {"k3": sum(r["launches"]["fused_dropout"] for r in ranks), "report": report}
+
+
+def train_cli_mesh_rank(dev, flags: list, save: Path) -> dict:
+    """One rank of train_cli_mesh: cli.train for two epochs, then (rank 0
+    copying the run's epoch_000 as a run stopped there leaves it) a run
+    resumed from it for epoch 1, each with the counts set to 0 just before
+    and read just after."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = torch.distributed.get_rank()
+    split = save / "split" / "checkpoints"
+    out = {"rank": rank}
+    torch.cuda.reset_peak_memory_stats(dev)
+    for name, args in (("continuous", ["--experiment_name", "cont", *flags]),
+                       ("resume", ["--experiment_name", "split", *flags,
+                                   "--pretrain", str(split)])):
+        if name == "resume" and rank == 0:
+            cont = save / "cont" / "checkpoints"
+            shutil.copytree(cont / "epoch_000", split / "epoch_000")
+            shutil.copy(cont / "epoch_000.meta.json", split)
+        torch.distributed.barrier()
+        cuda_kernels.reset_launch_counts()      # this path's run starts here
+        timing = {}
+        t = time.perf_counter()
+        train_main(args, timing=timing)
+        out[name] = {"wall_s": time.perf_counter() - t, "epochs": timing["epochs"],
+                     "launches": {k: getattr(cuda_kernels, k).launches for k in
+                                  ("fused_dropout", "fused_ode_solve", "fused_cde_solve")}}
+    out["peak_memory_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    return out
+
+
+def train_cli_mesh(dev, work: Path, root) -> dict:
+    """cli.train --mesh_data 2 on the flagship's train configuration (B=16
+    global, 8 a rank) on the eval tree, its two ranks sharing the card over
+    gloo: two epochs, then a run resumed from the first epoch's
+    checkpoint, whose epoch_001 must equal the two-epoch run's bit for
+    bit. K3 9 a step on each rank, K1 10 a window step of rank 0's
+    evaluation and none on rank 1."""
+    from ode_vio_tpu_torch.parallel.mesh import launch
+
+    cfg = train_config()
+    save = work / "train_cli_mesh"
+    flags = [*train_cli_flags(root, save, dev, epochs=2), "--mesh_data", str(MESH_RANKS)]
+    steps, evals = train_cli_counts(flags, (0, 1))
+    t = time.perf_counter()
+    ranks = launch(train_cli_mesh_rank, [dev] * MESH_RANKS, flags, save, backend="gloo")
+    wall = time.perf_counter() - t
+    k1_per_eval = cfg.model.seq_len - 1
+    for r in ranks:
+        for name, n_steps, n_evals in (("continuous", steps, evals),
+                                       ("resume", steps[1:], evals[1:])):
+            got = r[name]["launches"]
+            check_launches(f"train_cli_mesh rank {r['rank']} {name} K3", got["fused_dropout"],
+                           9 * sum(n_steps))
+            check_launches(f"train_cli_mesh rank {r['rank']} {name} K1",
+                           got["fused_ode_solve"], k1_per_eval * sum(n_evals) * (r["rank"] == 0))
+            check_launches(f"train_cli_mesh rank {r['rank']} {name} K2", got["fused_cde_solve"], 0)
+            if [len(e["steps"]) for e in r[name]["epochs"]] != n_steps:
+                raise AssertionError(f"train_cli_mesh rank {r['rank']} {name}: steps "
+                                     f"{[len(e['steps']) for e in r[name]['epochs']]}")
+    a = CheckpointManager(save / "cont" / "checkpoints").restore_raw("epoch_001")
+    b = CheckpointManager(save / "split" / "checkpoints").restore_raw("epoch_001")
+    gaps = tensor_gaps(a, b)
+    per_rank = []
+    for r in ranks:
+        ms = [s["s"] * 1e3 for e in r["continuous"]["epochs"] for s in e["steps"]][1:]
+        per_rank.append({"rank": r["rank"], "p50_step_ms": statistics.median(ms),
+                         "peak_memory_gib": r["peak_memory_gib"],
+                         "wall_s": {k: r[k]["wall_s"] for k in ("continuous", "resume")},
+                         "launches": {k: r[k]["launches"] for k in ("continuous", "resume")},
+                         "losses": [e["loss"] for e in r["continuous"]["epochs"]]})
+    phase("train_cli_mesh", ranks=MESH_RANKS, backend="gloo", batch=cfg.train.batch_size,
+          steps_by_epoch=steps, eval_windows_by_epoch=evals, wall_s=wall,
+          rank0_epochs=epoch_report(cfg, {"epochs": ranks[0]["continuous"]["epochs"]}),
+          per_rank=per_rank, resumed_vs_continuous_epoch_001=gaps or "bitwise equal")
+    if gaps:
+        raise AssertionError(f"train_cli_mesh: the resumed run's epoch_001 differs: {gaps}")
+    return {"k3": sum(r[k]["launches"]["fused_dropout"] for r in ranks
+                      for k in ("continuous", "resume")),
+            "k1": sum(r[k]["launches"]["fused_ode_solve"] for r in ranks
+                      for k in ("continuous", "resume"))}
+
+
+def relative_transforms(results) -> list:
+    """Each lane's frame-to-frame transforms from its accumulated
+    trajectory (``kitti_eval``'s est_global)."""
+    out = []
+    for r in results:
+        g = np.asarray(r["est_global"])
+        out.append(np.linalg.inv(g[:-1]) @ g[1:])
+    return out
+
+
+def eval_lanes(model, root, cfg, dev, devices, seqs=EVAL_SEQS, k1_per_step=0, k2_per_step=0,
+               name="eval_mesh", runs=range(MESH_RUN_TIMES)):
+    """eval_runs over the ``runs`` of ``seqs`` (each its own seeded data
+    dropout) at the flagship's eval dropout through
+    make_infer_fn(fold_bn=True), its lanes over
+    ``devices`` (None: one device), with the counts set to 0 just before
+    and read just after (K1 and K2 per window step per replica as given):
+    each lane's transforms, the launches, frames and wall seconds."""
+    m = cfg.model
+    infer = make_infer_fn(model, fold_bn=True, device=dev)
+    evs = [KittiEvaluator(root, seqs, m.seq_len, (m.img_h, m.img_w),
+                          cfg.data.eval_data_dropout, rng=np.random.default_rng(SEED + run))
+           for run in runs]
+    replicas = 1 if devices is None else len(devices)
+    cuda_kernels.reset_launch_counts()          # this path's run starts here
+    t = time.perf_counter()
+    runs = eval_runs(infer, evs, devices=devices)
+    wall = time.perf_counter() - t
+    k1, k2 = cuda_kernels.fused_ode_solve.launches, cuda_kernels.fused_cde_solve.launches
+    steps = max(len(p) for ev in evs for p in ev.partitions)
+    check_launches(f"{name} K1", k1, k1_per_step * steps * replicas)
+    check_launches(f"{name} K2", k2, k2_per_step * steps * replicas)
+    for run in runs:
+        for seq, r in zip(seqs, run):
+            if not all(math.isfinite(r[k]) for k in METRICS):
+                raise AssertionError(f"{name}: sequence {seq} metrics {r}")
+    frames = evs[0].timing["frames"]
+    return {"poses": relative_transforms([r for ev in evs for r in ev.results]),
+            "k1": k1, "k2": k2, "lanes": len(seqs) * len(evs), "frames": frames,
+            "wall_s": wall, "frames_per_s": frames / wall,
+            "decode_wait_share": evs[0].timing["decode_wait_s"] / evs[0].timing["wall_s"],
+            "incomplete": infer.incomplete()}
+
+
+def lane_gap(a: list, b: list) -> float:
+    return max(float(np.abs(x - y).max()) for x, y in zip(a, b))
+
+
+def serve_mesh(dev, cfg, devices) -> tuple:
+    """StreamingEngine(max_sessions=4) over ``devices`` against one device
+    on SCHEDULE's seeded windows: the split engine's launches (K1 10 a
+    step per replica), per-session poses and each session's gap."""
+    model = create_model(cfg, seed=SEED, device=dev)
+    wins = make_windows(cfg, np.random.default_rng(SEED), len(SCHEDULE))
+    out = {}
+    for name, devs in (("one", None), ("split", devices)):
+        engine = StreamingEngine(model, max_sessions=SESSIONS, fold_bn=True, device=dev,
+                                 devices=devs)
+        engine.warmup(wins[0][0])
+        per_step = (cfg.model.seq_len - 1) * (1 if devs is None else len(devs))
+        cuda_kernels.reset_launch_counts()      # this path's run starts here
+        poses, lat, _ = serve(engine, wins, [(per_step, 0)] * len(SCHEDULE))
+        out[name] = (poses, lat, cuda_kernels.fused_ode_solve.launches)
+    gap = max(float(np.abs(a[s] - b[s]).max()) for a, b in zip(out["one"][0], out["split"][0])
+              for s in a)
+    return out["split"][2], gap, [x * 1e3 for x in out["split"][1]], [
+        x * 1e3 for x in out["one"][1]]
+
+
+def eval_mesh(dev, root) -> dict:
+    """Eval lanes and serving sessions split over two replicas sharing the
+    card, in bf16 and in float32: eval_runs of the three sequences twice
+    (6 lanes, 3 a replica) and StreamingEngine with 4 sessions, each lane
+    against the unsplit run within MESH_POSE_ATOL; K1 10 a window step per
+    replica. Then the cde model's eval of sequence 05 twice (a lane a
+    replica, K2 once a window step per replica) against the two runs
+    unsplit one at a time, which is what each replica computes, within
+    MESH_POSE_ATOL; its gap to the unsplit run of both lanes in one call
+    is printed and not held: the cde core's adaptive solve turns the
+    other rounding of a batch of 2 into another step sequence
+    (tests/test_torch_port_mesh.py::test_cde_solve_rows_are_independent
+    shows its rows independent in float64)."""
+    devices = [dev] * MESH_RANKS
+    report, k1_eval, k1_serve = {}, 0, 0
+    for dtype in ("bfloat16", "float32"):
+        base = eval_config()
+        cfg = dataclasses.replace(base, model=dataclasses.replace(base.model, compute_dtype=dtype))
+        model = create_model(cfg, seed=SEED, device=dev)
+        k1 = cfg.model.seq_len - 1
+        one = eval_lanes(model, root, cfg, dev, None, k1_per_step=k1,
+                         name=f"eval_mesh_{dtype}_one")
+        split = eval_lanes(model, root, cfg, dev, devices, k1_per_step=k1,
+                           name=f"eval_mesh_{dtype}")
+        k1_eval += split["k1"]
+        gap = lane_gap(one.pop("poses"), split.pop("poses"))
+        launches, serve_gap, split_ms, one_ms = serve_mesh(dev, cfg, devices)
+        k1_serve += launches
+        report[dtype] = {"eval_split": split, "eval_one_device": one, "eval_lane_gap": gap,
+                         "serve_launches": launches, "serve_session_gap": serve_gap,
+                         "serve_step_ms_split": split_ms, "serve_step_ms_one": one_ms}
+        if gap > MESH_POSE_ATOL[dtype] or serve_gap > MESH_POSE_ATOL[dtype]:
+            raise AssertionError(f"eval_mesh {dtype}: split against unsplit: eval {gap}, "
+                                 f"serve {serve_gap} (limit {MESH_POSE_ATOL[dtype]})")
+        del model
+        torch.cuda.empty_cache()
+    cfg = cde_config()
+    model = create_model(cfg, seed=SEED, device=dev)
+    alone = [eval_lanes(model, root, cfg, dev, None, ("05",), k2_per_step=1,
+                        name=f"eval_mesh_cde_run{run}", runs=(run,))
+             for run in range(MESH_RUN_TIMES)]
+    one = eval_lanes(model, root, cfg, dev, None, ("05",), k2_per_step=1,
+                     name="eval_mesh_cde_one")
+    split = eval_lanes(model, root, cfg, dev, devices, ("05",), k2_per_step=1,
+                       name="eval_mesh_cde")
+    gap = lane_gap([p for a in alone for p in a["poses"]], split["poses"])
+    atol = MESH_POSE_ATOL[cfg.model.compute_dtype]
+    report["cde"] = {"eval_split": {k: v for k, v in split.items() if k != "poses"},
+                     "lane_gap_to_one_lane_a_call": gap, "pose_atol": atol,
+                     "lane_gap_to_two_lanes_a_call": lane_gap(one["poses"], split["poses"])}
+    if gap > atol:
+        raise AssertionError(f"eval_mesh cde: split against the lanes run one at a time: "
+                             f"{gap} (limit {atol})")
+    phase("eval_mesh", replicas=MESH_RANKS, device=str(dev), run_times=MESH_RUN_TIMES,
+          pose_atol=MESH_POSE_ATOL, **report)
+    del model
+    torch.cuda.empty_cache()
+    return {"k1": {"eval_mesh": k1_eval, "serve_mesh": k1_serve}, "k2": split["k2"]}
+
+
+def mesh(dev, work: Path, root) -> dict:
+    """The mesh phase: train_mesh at the flagship's train configuration
+    (B=16 global, 3 steps), train_cli_mesh, eval_mesh. Returns each
+    kernel's launches by path."""
+    cfg = train_config()
+    train = train_mesh(dev, cfg, MESH_STEPS, k3_per_step=9)
+    phase("train_mesh", **train["report"])
+    cli = train_cli_mesh(dev, work, root)
+    ev = eval_mesh(dev, root)
+    return {"k1": {"train_cli_mesh_eval": cli["k1"], **ev["k1"]},
+            "k2": {"eval_mesh_cde": ev["k2"]},
+            "k3": {"train_mesh": train["k3"], "train_cli_mesh": cli["k3"]}}
+
+
 def main() -> None:
     seconds = {}
 
@@ -2560,20 +3010,21 @@ def main() -> None:
         modes = timed("solver_modes", solver_modes, dev, work, root)
         enc = timed("encoders", encoders_phase, dev, work, root, cli["pth"])
         edg = timed("edges", edges, dev, work, root)
+        msh = timed("mesh", mesh, dev, work, root)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     k1_by_path = {"slice": k1_launches, **ev["launches"], "eval_cli": cli["k1"],
                   **serve_launches, **tcli["k1"], **carry["k1"], **modes["k1"], **enc["k1"],
-                  **edg["k1"]}
+                  **edg["k1"], **msh["k1"]}
     k2_by_path["eval_cli_cde"] = cli["k2"]
     k2_by_path["train_cli_cde_eval"] = tcde["k2"]
     k2_by_path["train_tbptt_eval"] = tbptt["k2"]
-    k2_by_path.update(carry["k2"], **modes["k2"])
+    k2_by_path.update(carry["k2"], **modes["k2"], **msh["k2"])
     k3 = timed("kernel_dropout", kernel_dropout_check, dev)
     k3_by_path = timed("train", train_phases, dev)
     k3_by_path.update(tcli["k3"], train_cli_cde=tcde["k3"], train_rde=tcde["k3_rde"],
                       train_tbptt=tbptt["k3"], **carry["k3"], **k3_cores, **modes["k3"],
-                      **enc["k3"], **edg["k3"])
+                      **enc["k3"], **edg["k3"], **msh["k3"])
     phase("seconds", **seconds)
     print(json.dumps({"kernels": [
         {"name": "fused_ode_solve", "route": "cuda",

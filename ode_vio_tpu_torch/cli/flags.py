@@ -8,30 +8,29 @@ packages, and ``cli/test.py``, ``cli/serve.py``, ``cli/train.py``,
 CPU) and ``--use_kernels`` / ``--no-use_kernels`` in place of
 ``--use_pallas``.
 
-A flag whose feature the port does not have yet raises ``SystemExit``
-when it is set, naming the ``ROADMAP.md`` item that brings it
-(:data:`UNPORTED`); it is never silently ignored.
+The mesh flags raise the mesh's own errors as ``SystemExit``: more
+devices than there are (:func:`lane_devices`, ``cli/train.py``), a data
+and model axis that do not make up the ranks, and ``--multihost``
+without its launcher's variables (:func:`run_device`).
 """
 
 from __future__ import annotations
 
 import argparse
+from typing import List, Optional
 
 import torch
 
 from ode_vio_tpu_torch.config import (
     Config,
     DataConfig,
+    MeshConfig,
     ModelConfig,
     SolverConfig,
     TrainConfig,
+    resolve_device,
 )
-
-# flag -> (its value when not set, the ROADMAP.md item that ports it)
-UNPORTED = {
-    "multihost": (False, "Queue 1 item 7 (parallel/mesh.py)"),
-    "mesh_model": (1, "Queue 1 item 7 (parallel/mesh.py)"),
-}
+from ode_vio_tpu_torch.parallel.mesh import init_multihost, local_devices
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -98,8 +97,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--eval_dp", type=int, default=1,
                    help="shard the eval batch lanes (cli.test) or serving "
                         "session lanes (cli.serve multi-session) over this "
-                        "many devices (-1 = all local devices); only 1 is "
-                        "ported")
+                        "many devices (-1 = all local devices), a replica "
+                        "of the model on each")
     p.add_argument("--exact_dropout", action="store_true",
                    help="train-mode trunk dropout from the framework's "
                         "Bernoulli sampler instead of the Philox kernel K3 "
@@ -226,7 +225,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="data-parallel axis size (-1 = all devices)")
     p.add_argument("--mesh_model", type=int, default=1)
     p.add_argument("--multihost", action="store_true",
-                   help="multi-host runs (not ported)")
+                   help="join a job of ranks started by a launcher "
+                        "(torchrun, or SLURM) from its MASTER_ADDR, "
+                        "MASTER_PORT, RANK, WORLD_SIZE and LOCAL_RANK; "
+                        "the mesh then spans every rank of the job")
 
     # profiling
     p.add_argument("--profile_dir", type=str, default=None,
@@ -236,35 +238,31 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def refuse_unported(args) -> None:
-    """``SystemExit`` for the first set flag whose feature is not ported."""
-    for name, (unset, item) in UNPORTED.items():
-        if getattr(args, name) != unset:
-            raise SystemExit(f"--{name} is not ported to ode_vio_tpu_torch "
-                             f"yet (ROADMAP.md, {item})")
-    if args.mesh_data not in (-1, 1):
-        raise SystemExit("--mesh_data other than 1 is not ported to "
-                         "ode_vio_tpu_torch yet (ROADMAP.md, Queue 1 item 7 "
-                         "(parallel/mesh.py))")
+def run_device(args) -> torch.device:
+    """The device of this process: ``--device``, or under ``--multihost``
+    this rank's (the card ``LOCAL_RANK``) once it has joined the job's
+    process group, as the JAX package calls
+    ``jax.distributed.initialize()``."""
+    if args.multihost:
+        return init_multihost(args.device)
+    return resolve_device(args.device)
 
 
-def check_eval_dp(eval_dp: int, device: torch.device) -> None:
-    """``--eval_dp``: -1 means every card there is (1 on the CPU). One
-    device is all the port runs on until ``parallel/mesh.py`` is ported."""
-    if eval_dp == -1:
-        eval_dp = torch.cuda.device_count() if device.type == "cuda" else 1
-    if eval_dp > 1:
-        raise SystemExit(f"--eval_dp {eval_dp}: sharding eval or serving "
-                         "lanes over several devices is not ported to "
-                         "ode_vio_tpu_torch yet (ROADMAP.md, Queue 1 item 7 "
-                         "(parallel/mesh.py))")
+def lane_devices(eval_dp: int, device: torch.device) -> Optional[List[torch.device]]:
+    """``--eval_dp``'s devices: the first N cards (-1: every card; on the
+    CPU, N replicas on it, -1 one), or None for one device. SystemExit for
+    more cards than there are."""
+    try:
+        devices = local_devices(eval_dp, device)
+    except ValueError as e:
+        raise SystemExit(f"--eval_dp {eval_dp}: {e}") from None
+    return devices if len(devices) > 1 else None
 
 
 def config_from_args(args) -> Config:
     """The typed Config of the flags; ``--debug_nans`` turns the NaN trap
     on for the whole process (``utils/profiling.py::set_debug_nans``), as
     the JAX package sets ``jax_debug_nans``."""
-    refuse_unported(args)
     if args.debug_nans:
         from ode_vio_tpu_torch.utils.profiling import set_debug_nans
 
@@ -347,6 +345,7 @@ def config_from_args(args) -> Config:
             print_frequency=args.print_frequency,
             ckpt_every=args.ckpt_every,
         ),
+        mesh=MeshConfig(data_axis=args.mesh_data, model_axis=args.mesh_model),
     )
 
 

@@ -15,7 +15,9 @@ multi-camera / multi-vehicle serving shape. The pipeline: folded
 BatchNorm (models/fold.py), bf16 encoders, the warm-started adaptive
 solve (kernel K1, or K2 for cde/rde, on the card), native C++ decode
 prefetched one window ahead (data/native_loader.py). Runs on
-``--device`` (default ``cuda``).
+``--device`` (default ``cuda``); with several sessions ``--eval_dp N``
+splits their lanes over the first N cards, a replica of the model on
+each. Under ``--multihost`` rank 0 of the job serves.
 
 ``main(argv, timing)``: a ``timing`` dict, where given, receives the
 served run's wall seconds and the seconds spent waiting on decode.
@@ -33,12 +35,13 @@ import torch
 from ode_vio_tpu_torch.cli.flags import (
     build_model,
     build_parser,
-    check_eval_dp,
     config_from_args,
+    lane_devices,
+    run_device,
 )
-from ode_vio_tpu_torch.config import resolve_device
 from ode_vio_tpu_torch.data.evaluation import EvalPartition, kitti_eval
 from ode_vio_tpu_torch.data.native_loader import Prefetcher
+from ode_vio_tpu_torch.parallel.mesh import is_rank0
 from ode_vio_tpu_torch.training.loop import make_infer_fn
 from ode_vio_tpu_torch.utils import geometry as geo
 from ode_vio_tpu_torch.utils.logging_utils import (
@@ -54,8 +57,10 @@ def _window_tensors(w, device):
 def main(argv=None, timing: Optional[dict] = None):
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
-    device = resolve_device(args.device)
-    check_eval_dp(args.eval_dp, device)
+    device = run_device(args)
+    if not is_rank0():
+        return None
+    devices = lane_devices(args.eval_dp, device)
     dirs = setup_experiment_directories(
         cfg.save_dir, cfg.experiment_name + "_serve"
     )
@@ -66,7 +71,7 @@ def main(argv=None, timing: Optional[dict] = None):
     model = build_model(cfg, device, logger, "serving")
     fold = not args.no_fold_bn
     if len(cfg.data.val_seq) > 1:
-        return _serve_multi(cfg, model, fold, device, dirs, logger, timing)
+        return _serve_multi(cfg, model, fold, device, devices, dirs, logger, timing)
 
     infer = make_infer_fn(model, fold_bn=fold, device=device)
 
@@ -138,11 +143,13 @@ def main(argv=None, timing: Optional[dict] = None):
     return report
 
 
-def _serve_multi(cfg, model, fold_bn, device, dirs, logger, timing):
+def _serve_multi(cfg, model, fold_bn, device, devices, dirs, logger, timing):
     """Serve every ``--val_seq`` sequence as a concurrent session of one
-    StreamingEngine. The engine is warmed up on prototype windows before
-    the clock starts, and the latency percentiles skip the first two
-    steps, so both are steady-state."""
+    StreamingEngine, its lanes split over ``devices`` (``--eval_dp``; the
+    lane count rounded up to a multiple, the spare lanes left free). The
+    engine is warmed up on prototype windows before the clock starts, and
+    the latency percentiles skip the first two steps, so both are
+    steady-state."""
     from ode_vio_tpu_torch.serving import StreamingEngine
 
     seqs = list(cfg.data.val_seq)
@@ -151,8 +158,9 @@ def _serve_multi(cfg, model, fold_bn, device, dirs, logger, timing):
                          (cfg.model.img_h, cfg.model.img_w))
         for s in seqs
     }
-    engine = StreamingEngine(model, max_sessions=len(seqs), fold_bn=fold_bn,
-                             device=device)
+    n = 1 if devices is None else len(devices)
+    engine = StreamingEngine(model, max_sessions=-(-len(seqs) // n) * n, fold_bn=fold_bn,
+                             device=device, devices=devices)
     sids = {s: engine.open_session() for s in seqs}
     w0 = parts[seqs[0]][0]
     engine.warmup((w0.imgs, w0.imus, w0.ts))

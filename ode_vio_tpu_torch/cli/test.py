@@ -8,7 +8,11 @@ KITTI evaluation ``--run_times`` times (re-rolling the stochastic eval
 frame-dropout each repeat), sequentially or, with ``--batch_runs``, as
 the lanes of one stream, and writes per-sequence mean +/- std to
 ``summary.txt``, KITTI-format pose dumps and, where matplotlib is
-installed, trajectory plots. Runs on ``--device`` (default ``cuda``).
+installed, trajectory plots. Runs on ``--device`` (default ``cuda``);
+``--eval_dp N`` splits the lanes of a batched stream over the first N
+cards (-1: every card), a replica of the model on each, the lanes padded
+to a multiple of N, as the JAX package shards them over a 1-D data mesh.
+Under ``--multihost`` rank 0 of the job evaluates.
 """
 
 from __future__ import annotations
@@ -18,15 +22,16 @@ import numpy as np
 from ode_vio_tpu_torch.cli.flags import (
     build_model,
     build_parser,
-    check_eval_dp,
     config_from_args,
+    lane_devices,
+    run_device,
 )
-from ode_vio_tpu_torch.config import resolve_device
 from ode_vio_tpu_torch.data.evaluation import (
     KittiEvaluator,
     eval_runs,
     summarize_runs,
 )
+from ode_vio_tpu_torch.parallel.mesh import is_rank0
 from ode_vio_tpu_torch.training.loop import make_infer_fn
 from ode_vio_tpu_torch.utils.logging_utils import (
     setup_experiment_directories,
@@ -49,8 +54,10 @@ def write_plots(evaluator: KittiEvaluator, graphs, logger, tag: str = "") -> Non
 def main(argv=None):
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
-    device = resolve_device(args.device)
-    check_eval_dp(args.eval_dp, device)
+    device = run_device(args)
+    if not is_rank0():
+        return
+    devices = lane_devices(args.eval_dp, device)
     dirs = setup_experiment_directories(cfg.save_dir, cfg.experiment_name + "_test")
     logger = setup_logger(f"test_{cfg.experiment_name}", dirs["logs"])
 
@@ -66,10 +73,10 @@ def main(argv=None):
             rng=np.random.default_rng(cfg.train.seed + run),
         )
 
-    if args.batch_runs:
+    if args.batch_runs or devices is not None:
         # every (run, sequence) pair is one lane of a single stream
         evaluators = [make_evaluator(run) for run in range(cfg.run_times)]
-        all_runs = eval_runs(infer, evaluators)
+        all_runs = eval_runs(infer, evaluators, devices=devices)
         for run, errors in enumerate(all_runs):
             logger.info("run %d: %s", run, errors)
         write_plots(evaluators[0], dirs["graphs"], logger)

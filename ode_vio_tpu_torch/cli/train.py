@@ -12,6 +12,19 @@ split, its second segment seeded with the first's detached hidden state);
 state carried across chains of N steps. ``--profile_dir`` writes a
 ``torch.profiler`` trace of the first epoch's steps 1-4 there.
 
+Data parallelism (``parallel/mesh.py``): ``--mesh_data`` ranks (-1: as
+many as divide the batch and the cards) each train on their block of every
+global batch, ``--mesh_model`` ranks on the same block, as the JAX
+command line resolves its mesh. Without a process group, more than one
+rank starts one process per card (rank r on ``cuda:r``; on the CPU they
+share it) and this process waits for them; in a process group (one of
+those, or a rank of a ``--multihost`` job) the mesh spans its ranks. The
+ranks decode only their rows, share BatchNorm statistics and average
+their gradients, so every rank holds the same state; rank 0 logs to the
+console, evaluates, plots and calls wandb, and every rank takes part in
+writing checkpoints (rank 0 writes). ``--eval_dp`` is ignored here, as
+the JAX command line ignores it.
+
 ``--pretrain`` takes a reference-layout checkpoint file, which
 warm-starts the weights with a fresh optimizer, or a checkpoints directory
 of this command line, from whose latest epoch the run resumes with the
@@ -24,14 +37,17 @@ from __future__ import annotations
 
 import contextlib
 import re
+import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
+import torch.distributed as dist
 
-from ode_vio_tpu_torch.cli.flags import build_parser, check_eval_dp, config_from_args
+from ode_vio_tpu_torch.cli.flags import build_parser, config_from_args, run_device
 from ode_vio_tpu_torch.cli.test import write_plots
-from ode_vio_tpu_torch.config import Config, resolve_device
+from ode_vio_tpu_torch.config import Config
 from ode_vio_tpu_torch.data.evaluation import KittiEvaluator
 from ode_vio_tpu_torch.data.kitti import (BoundarySafeBatchSampler, KittiDataset,
                                           StreamingChainSampler)
@@ -39,6 +55,8 @@ from ode_vio_tpu_torch.data.loader import PrefetchingLoader
 from ode_vio_tpu_torch.data.transforms import get_transforms
 from ode_vio_tpu_torch.models.convert import load_flownet, load_pretrain, require_port_checkpoint
 from ode_vio_tpu_torch.models.deepvio import count_parameters, create_model
+from ode_vio_tpu_torch.parallel.mesh import (auto_data_axis, batch_rows, create_mesh, is_rank0,
+                                             launch, local_devices, world_size)
 from ode_vio_tpu_torch.training.checkpoint import CheckpointManager
 from ode_vio_tpu_torch.training.loop import (
     create_train_state,
@@ -52,12 +70,15 @@ from ode_vio_tpu_torch.utils.logging_utils import setup_experiment_directories, 
 from ode_vio_tpu_torch.utils.profiling import trace
 
 
-def get_train_loader(cfg: Config, epoch: int, logger) -> PrefetchingLoader:
+def get_train_loader(cfg: Config, epoch: int, logger,
+                     rows: Optional[slice] = None) -> PrefetchingLoader:
     """A fresh dataset for ``epoch`` with a frame-dropout ratio drawn from
     N(data_dropout, data_dropout_std) clipped to [0, 0.9], batched without
     crossing a sequence boundary and decoded by the native pipeline. Under
     ``tbptt_chain`` the batches are ``StreamingChainSampler``'s: lane b of
-    consecutive batches walks one chunk of boundary-sharing windows."""
+    consecutive batches walks one chunk of boundary-sharing windows.
+    ``rows``: the rows of each global batch this rank decodes; the draws
+    are the whole batch's on every rank."""
     rng = np.random.default_rng(cfg.train.seed * 100003 + epoch)
     ratio = float(np.clip(rng.normal(cfg.data.data_dropout, cfg.data.data_dropout_std), 0, 0.9))
     logger.info("epoch %d dropout ratio: %.4f", epoch, ratio)
@@ -77,7 +98,7 @@ def get_train_loader(cfg: Config, epoch: int, logger) -> PrefetchingLoader:
                                            shuffle=cfg.data.shuffle,
                                            seed=cfg.train.seed + epoch, drop_last=True)
     return PrefetchingLoader(ds, sampler, (cfg.model.img_h, cfg.model.img_w), transform=aug,
-                             decode_threads=max(1, cfg.data.workers))
+                             decode_threads=max(1, cfg.data.workers), rows=rows)
 
 
 def train_epoch(cfg: Config, loader, train_step, state, logger, epoch: int, steps=None,
@@ -88,8 +109,9 @@ def train_epoch(cfg: Config, loader, train_step, state, logger, epoch: int, step
     threads from step to step and resets at every chain start (each
     ``chain``-th step), where the sampler starts its chains. With
     ``profile_dir``, epoch 0's steps 1-4 (after the first, which builds
-    the kernels) are traced into it (utils/profiling.py::trace), the trace
-    closed once step 4's loss is ready, or at the end of a shorter epoch."""
+    the kernels and is the profiler's warm-up) are traced into it
+    (utils/profiling.py::trace), the trace closed once step 4's loss is
+    ready, or at the end of a shorter epoch."""
     losses = []
     chain = cfg.train.tbptt_chain
     hc = None
@@ -97,8 +119,8 @@ def train_epoch(cfg: Config, loader, train_step, state, logger, epoch: int, step
     profiling = contextlib.ExitStack()
     with profiling:  # closes the trace of a short epoch, or of one that failed
         for it, batch in enumerate(loader):
-            if traced and it == 1:
-                profiling.enter_context(trace(profile_dir))
+            if traced and it == 0:
+                prof = profiling.enter_context(trace(profile_dir, warmup_steps=1))
             t = time.perf_counter()
             if chain:
                 if it % chain == 0:
@@ -111,6 +133,8 @@ def train_epoch(cfg: Config, loader, train_step, state, logger, epoch: int, step
                 loss = float(metrics["loss"])  # waits for the step
                 steps.append({"s": time.perf_counter() - t, "loss": loss,
                               "solver_incomplete": int(metrics["solver_incomplete"])})
+            if traced and it < 4:
+                prof.step()  # the trace begins with step 1, each step marked
             if traced and it == 4:
                 float(metrics["loss"])  # the traced steps end on the device too
                 profiling.close()
@@ -171,18 +195,72 @@ def start_wandb(args, cfg: Config, logger):
         return None
 
 
+def rank_devices(cfg: Config, device) -> list:
+    """The devices of the run's ranks, as the JAX command line sizes its
+    mesh: ``mesh_data`` (-1: :func:`auto_data_axis` over this host's cards)
+    times ``mesh_model`` of them; on the CPU the ranks share it. SystemExit
+    for more cards than there are, or a model axis that leaves no data
+    axis."""
+    d, m = cfg.mesh.data_axis, cfg.mesh.model_axis
+    if device.type == "cuda":
+        cards = local_devices(-1, device)
+    else:
+        cards = local_devices(m if d == -1 else d * m, device)
+    if m < 1 or len(cards) // m < 1:
+        raise SystemExit(f"--mesh_model {m} does not fit {len(cards)} devices")
+    if d == -1:
+        d = auto_data_axis(cfg.train.batch_size, m, cards)
+    if d * m > len(cards):
+        raise SystemExit(f"--mesh_data {d} x --mesh_model {m} needs {d * m} devices and "
+                         f"there are {len(cards)}")
+    return cards[:d * m]
+
+
+def _rank(device, argv: list, timed: bool) -> Optional[dict]:
+    """One rank of a run that :func:`main` started: the run on ``device``."""
+    timing = {} if timed else None
+    main([*argv, "--device", str(device)], timing)
+    return timing
+
+
 def main(argv=None, timing: dict | None = None) -> None:
     """``timing``, a dict, receives under ``epochs`` one record per epoch:
     its steps (see :func:`train_epoch`), train and eval seconds, the
-    evaluator's timing, t_rel and r_rel."""
+    evaluator's timing, t_rel and r_rel. A run that starts its ranks puts
+    rank 0's records there and every rank's timing under ``ranks``."""
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
-    device = resolve_device(args.device)
-    check_eval_dp(args.eval_dp, device)
+    device = run_device(args)
+    if not dist.is_initialized():
+        devices = rank_devices(cfg, device)
+        if len(devices) > 1:
+            argv = list(sys.argv[1:] if argv is None else argv)
+            ranks = launch(_rank, devices, argv, timing is not None)
+            if timing is not None:
+                timing.update(ranks[0], ranks=ranks)
+            return
+    _train(args, cfg, device, timing)
+
+
+def _train(args, cfg: Config, device, timing: dict | None) -> None:
+    """The run of :func:`main` in this process: alone, or as one rank of
+    the process group's mesh."""
+    rank0 = is_rank0()
+    data = cfg.mesh.data_axis
+    if data == -1:
+        data = auto_data_axis(cfg.train.batch_size, cfg.mesh.model_axis, range(world_size()))
+    try:
+        mesh = create_mesh(data, cfg.mesh.model_axis)
+    except ValueError as e:
+        raise SystemExit(f"--mesh_data/--mesh_model: {e}") from None
+    rows = batch_rows(mesh, cfg.train.batch_size)
     dirs = setup_experiment_directories(cfg.save_dir, cfg.experiment_name)
-    logger = setup_logger(f"train_{cfg.experiment_name}", dirs["logs"])
+    suffix = "" if rank0 else f"_rank{dist.get_rank()}"
+    logger = setup_logger(f"train_{cfg.experiment_name}{suffix}", dirs["logs"], console=rank0)
     logger.info("config: %s", cfg)
     logger.info("device: %s", device)
+    logger.info("mesh: %s (of %d ranks), rows %d:%d of each batch", mesh.shape, world_size(),
+                rows.start, rows.stop)
 
     model = create_model(cfg, seed=cfg.train.seed, device=device, train=True)
     logger.info("total parameters: %d", count_parameters(model))
@@ -199,7 +277,7 @@ def main(argv=None, timing: dict | None = None) -> None:
         init_epoch = _warm_start_epoch(cfg.pretrain)
         logger.info("warm-started from reference checkpoint %s (epoch %d)", cfg.pretrain,
                     init_epoch)
-    state = create_train_state(cfg, model, seed=cfg.train.seed + 1, device=device)
+    state = create_train_state(cfg, model, seed=cfg.train.seed + 1, device=device, mesh=mesh)
     ckpt = CheckpointManager(dirs["checkpoints"])
     if cfg.pretrain and not warm:
         resume = CheckpointManager(cfg.pretrain)
@@ -215,17 +293,17 @@ def main(argv=None, timing: dict | None = None) -> None:
             logger.info("resumed from %s epoch %d (best t_rel %.4f)", cfg.pretrain, latest, best)
 
     if cfg.train.tbptt_chain:
-        train_step = make_streaming_train_step(cfg, device=device)
+        train_step = make_streaming_train_step(cfg, device=device, mesh=mesh)
         if cfg.data.hflip or cfg.data.color:
             logger.warning(
                 "tbptt_chain=%d with per-window random augmentations (--hflip/--color): "
                 "augmentation draws are independent per window, so a chain's carried "
                 "state crosses inconsistently-augmented windows", cfg.train.tbptt_chain)
     else:
-        train_step = make_train_step(cfg, device=device)
+        train_step = make_train_step(cfg, device=device, mesh=mesh)
     carried_step = None
     if cfg.train.carry_exposure > 0.0:
-        carried_step = make_train_step(cfg, carry=True, device=device)
+        carried_step = make_train_step(cfg, carry=True, device=device, mesh=mesh)
         mt = cfg.model.model_type
         mode = getattr(cfg.model, f"{mt}_streaming_mode", None)
         if mt in ("cde", "rde") and mode != "carry":
@@ -236,9 +314,10 @@ def main(argv=None, timing: dict | None = None) -> None:
                 "mode %r the exposed distribution does not match eval's",
                 cfg.train.carry_exposure, mt, mode)
     # one inference callable for the whole run, its weights swapped each
-    # epoch, with the BatchNorm statistics folded into the convolutions
-    infer = make_infer_fn(state.model, fold_bn=True, device=device)
-    wandb_run = start_wandb(args, cfg, logger) if cfg.wandb else None
+    # epoch, with the BatchNorm statistics folded into the convolutions;
+    # rank 0 evaluates, as the JAX command line evaluates once
+    infer = make_infer_fn(state.model, fold_bn=True, device=device) if rank0 else None
+    wandb_run = start_wandb(args, cfg, logger) if cfg.wandb and rank0 else None
     records = None if timing is None else timing.setdefault("epochs", [])
 
     for epoch in range(init_epoch, cfg.train.total_epochs):
@@ -246,7 +325,7 @@ def main(argv=None, timing: dict | None = None) -> None:
         set_learning_rate(state.optimizer, lr)
         logger.info("epoch %d lr %g", epoch, lr)
 
-        loader = get_train_loader(cfg, epoch, logger)
+        loader = get_train_loader(cfg, epoch, logger, rows)
         steps = None if records is None else []
         t0 = time.perf_counter()
         step = train_step if carried_step is None else _exposure_step(
@@ -259,21 +338,26 @@ def main(argv=None, timing: dict | None = None) -> None:
         if epoch % cfg.train.ckpt_every == 0:
             ckpt.save(ckpt.epoch_name(epoch), state, {"epoch": epoch, "best_t_rel": best})
 
-        evaluator = KittiEvaluator(
-            cfg.data.data_dir, cfg.data.val_seq, cfg.data.seq_len,
-            (cfg.model.img_h, cfg.model.img_w), cfg.data.eval_data_dropout,
-            rng=np.random.default_rng(cfg.train.seed + 7919 + epoch))
-        infer.set_variables(state.model.state_dict())
-        t0 = time.perf_counter()
-        errors = evaluator.eval(infer)
-        eval_s = time.perf_counter() - t0
-        t_rel = float(np.mean([e["t_rel"] for e in errors]))
-        r_rel = float(np.mean([e["r_rel"] for e in errors]))
+        evaluator, result, eval_s = None, [None, None], None
+        if rank0:
+            evaluator = KittiEvaluator(
+                cfg.data.data_dir, cfg.data.val_seq, cfg.data.seq_len,
+                (cfg.model.img_h, cfg.model.img_w), cfg.data.eval_data_dropout,
+                rng=np.random.default_rng(cfg.train.seed + 7919 + epoch))
+            infer.set_variables(state.model.state_dict())
+            t0 = time.perf_counter()
+            errors = evaluator.eval(infer)
+            eval_s = time.perf_counter() - t0
+            result = [float(np.mean([e[k] for e in errors])) for k in ("t_rel", "r_rel")]
+        if world_size() > 1:  # the other ranks wait for rank 0's evaluation
+            dist.broadcast_object_list(result, src=0)
+        t_rel, r_rel = result
         logger.info("epoch %d eval: t_rel %.4f r_rel %.4f", epoch, t_rel, r_rel)
-        if infer.incomplete() > 0:
-            logger.warning("epoch %d eval: %d ODE solves hit the step budget before t1 "
-                           "(truncated; raise ode_max_steps)", epoch, infer.incomplete())
-        write_plots(evaluator, dirs["graphs"], logger, tag=f"_{epoch}")
+        if rank0:
+            if infer.incomplete() > 0:
+                logger.warning("epoch %d eval: %d ODE solves hit the step budget before t1 "
+                               "(truncated; raise ode_max_steps)", epoch, infer.incomplete())
+            write_plots(evaluator, dirs["graphs"], logger, tag=f"_{epoch}")
         if t_rel < best:
             best = t_rel
             ckpt.save(f"best_{best:.2f}", state, {"epoch": epoch, "t_rel": best})
@@ -283,8 +367,9 @@ def main(argv=None, timing: dict | None = None) -> None:
         if records is not None:
             records.append({"epoch": epoch, "lr": lr, "loss": avg_loss, "steps": steps,
                             "train_s": train_s, "eval_s": eval_s,
-                            "eval_timing": dict(evaluator.timing), "t_rel": t_rel,
-                            "r_rel": r_rel, "eval_incomplete": infer.incomplete()})
+                            "eval_timing": None if evaluator is None else dict(evaluator.timing),
+                            "t_rel": t_rel, "r_rel": r_rel,
+                            "eval_incomplete": None if infer is None else infer.incomplete()})
 
     logger.info("training finished, best t_rel %.4f", best)
 

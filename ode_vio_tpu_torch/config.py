@@ -1,10 +1,10 @@
 """Typed configuration of the PyTorch port.
 
-The port's copy of the solver and model dataclasses of the JAX package
+The port's copy of the dataclasses of the JAX package
 (``ode_vio_tpu/config.py``): same field names, same defaults, so a
-configuration reads the same in both packages. Only the fields that a
-ported module reads are here; the others (the mesh) come with the
-modules that read them.
+configuration reads the same in both packages. :class:`MeshConfig` is
+read by ``cli/train.py``, which builds the mesh of ``parallel/mesh.py``
+from it.
 
 One knob changes meaning: the JAX package's ``use_pallas`` tri-state
 becomes :attr:`ModelConfig.use_kernels`, the switch for the port's
@@ -214,6 +214,20 @@ class TrainConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """The data-parallel mesh of training: ``data_axis`` ranks each take a
+    block of the global batch (-1: as many as divide the batch and the
+    devices), and ``model_axis`` ranks share each block and compute the
+    same step. ``axis_names`` is kept for the JAX package's parity and is
+    read by nothing, as the JAX command line leaves it unread: the port's
+    axes are always ``data`` and ``model``."""
+
+    data_axis: int = -1
+    model_axis: int = 1
+    axis_names: Sequence[str] = ("data", "model")
+
+
+@dataclass(frozen=True)
 class Config:
     experiment_name: str = "experiment"
     save_dir: str = "./results"
@@ -232,6 +246,7 @@ class Config:
         default_factory=lambda: SolverConfig(rtol=1e-4, atol=1e-6, max_steps=256))
     data: DataConfig = field(default_factory=DataConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
 
 
 def resolve_device(device) -> torch.device:

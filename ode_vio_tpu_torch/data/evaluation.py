@@ -6,9 +6,12 @@ The port's copy of ``ode_vio_tpu/data/evaluation.py`` (the reference's
 ``scripts/test_model.py:91-153``). Windows go to the infer callable's
 device (``infer.device``, set by ``training/loop.py::make_infer_fn``) as
 torch tensors, and poses come back with ``.cpu().numpy()``; the carry
-stays on the device from window to window. One card has no mesh, so the
-JAX package's ``sharding`` argument is gone; ``pad_to`` keeps its
-meaning.
+stays on the device from window to window. The JAX package's
+``sharding`` argument, the lanes split over a data mesh, is ``devices``
+here: a replica of the infer callable per device, each with its
+contiguous block of lanes and its own carry (``parallel/lanes.py::
+split_lanes``), the lanes padded to a multiple of the devices as
+``pad_to`` pads them.
 
   * Eval windows are NON-overlapping with one shared boundary frame
     (stride seq_len-1, KITTI_eval.py:78-91). The ragged tail window is
@@ -38,6 +41,7 @@ from ode_vio_tpu_torch.data.kitti import (
     inject_frame_dropout,
     load_sequence,
 )
+from ode_vio_tpu_torch.parallel.lanes import split_lanes
 from ode_vio_tpu_torch.utils import geometry as geo
 
 SEGMENT_LENGTHS = (100, 200, 300, 400, 500, 600, 700, 800)
@@ -225,6 +229,7 @@ def stream_eval_lanes(
     parts: Sequence[EvalPartition],
     pad_to: Optional[int] = None,
     timing: Optional[dict] = None,
+    devices: Optional[Sequence] = None,
 ) -> List[dict]:
     """Stream a set of eval partitions as parallel batch lanes through one
     batched forward per window step and score each with the official
@@ -241,10 +246,16 @@ def stream_eval_lanes(
     Window ``w + 1`` decodes on the prefetcher's threads while the device
     runs window ``w``. ``timing`` (a :func:`new_timing` dict), where given,
     adds up the stream's wall and decode-wait seconds, steps and frames.
-    Returns one ``kitti_eval`` dict per partition, in order.
+    ``devices`` splits the lanes over replicas of ``infer_fn`` (a
+    ``make_infer_fn`` callable, whose truncated-solve counts then include
+    the replicas'), and ``pad_to`` defaults to their number. Returns one
+    ``kitti_eval`` dict per partition, in order.
     """
     from ode_vio_tpu_torch.data.native_loader import Prefetcher
 
+    if devices is not None:
+        infer_fn = split_lanes(infer_fn, devices)
+        pad_to = pad_to or len(devices)
     parts = list(parts)
     n_real = len(parts)
     # lane -> source partition index; padded lanes alias the last partition
@@ -306,6 +317,7 @@ def eval_runs(
     infer_fn: Callable,
     evaluators: Sequence["KittiEvaluator"],
     pad_to: Optional[int] = None,
+    devices: Optional[Sequence] = None,
 ) -> List[List[dict]]:
     """Run SEVERAL stochastic eval repeats in one batched stream.
 
@@ -313,9 +325,10 @@ def eval_runs(
     sequentially to average over the random frame-dropout draws
     (test_model.py:101-128). Here every (run, sequence) pair becomes one
     batch lane of a single streaming forward, so the repeats amortise
-    into the batch. Each evaluator's ``.results`` is filled so plots/pose
-    dumps keep working per run, and the first evaluator's ``.timing``
-    holds the stream's.
+    into the batch; ``devices`` splits the lanes over replicas as
+    :func:`stream_eval_lanes` does. Each evaluator's ``.results`` is filled
+    so plots/pose dumps keep working per run, and the first evaluator's
+    ``.timing`` holds the stream's.
 
     Returns ``all_runs[run][seq]`` metric dicts, the shape
     ``summarize_runs`` expects.
@@ -324,7 +337,7 @@ def eval_runs(
     for ev in evaluators:
         lanes.extend(ev.partitions)
     flat = stream_eval_lanes(infer_fn, lanes, pad_to=pad_to,
-                             timing=evaluators[0].timing)
+                             timing=evaluators[0].timing, devices=devices)
     out: List[List[dict]] = []
     off = 0
     for ev in evaluators:
@@ -397,14 +410,16 @@ class KittiEvaluator:
         pose_gt = np.asarray(part.seq.rel_poses[: len(pose_est)], np.float32)
         return kitti_eval(pose_est, pose_gt)
 
-    def eval_batched(self, infer_fn: Callable) -> List[dict]:
+    def eval_batched(self, infer_fn: Callable,
+                     devices: Optional[Sequence] = None) -> List[dict]:
         """Stream ALL validation sequences together, one sequence per batch
         lane, in place of the reference's one-sequence-at-a-time batch-1
         loop (KITTI_eval.py:166-170): one batched forward serves every
-        window step of every sequence. Exhausted lanes replay their last
-        window; their outputs are discarded."""
+        window step of every sequence (split over ``devices`` as
+        :func:`stream_eval_lanes` splits it). Exhausted lanes replay their
+        last window; their outputs are discarded."""
         self.results = stream_eval_lanes(infer_fn, self.partitions,
-                                         timing=self.timing)
+                                         timing=self.timing, devices=devices)
         return [{k: r[k] for k in METRICS} for r in self.results]
 
     def eval(self, infer_fn: Callable, batched: bool = True) -> List[dict]:

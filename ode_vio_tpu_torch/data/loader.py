@@ -28,6 +28,12 @@ class PrefetchingLoader:
     ``transform`` applies per-window after decode (the dataset's own
     transform is bypassed so decode can happen natively at the target
     resolution in one pass).
+
+    ``rows``, a slice, keeps those rows of each batch the sampler gives (a
+    data-parallel rank's, ``parallel/mesh.py::batch_rows``): only their
+    windows are decoded, and ``transform`` still makes every row's random
+    draws in row order (on a 1x1 stand-in image for the rows not kept), so
+    a kept row is augmented as the whole batch's loader augments it.
     """
 
     def __init__(
@@ -39,6 +45,7 @@ class PrefetchingLoader:
         prefetch_depth: int = 2,
         decode_threads: int = 4,
         use_native: Optional[bool] = None,
+        rows: Optional[slice] = None,
     ):
         self.ds = dataset
         self.sampler = sampler
@@ -49,9 +56,12 @@ class PrefetchingLoader:
         if use_native is None:
             use_native = native_loader.is_available()
         self.use_native = use_native
+        self.rows = rows
 
     def _assemble(self, idx_batch) -> tuple:
-        windows = [self.ds.samples[i] for i in idx_batch]
+        every = [self.ds.samples[i] for i in idx_batch]
+        kept = range(len(every)) if self.rows is None else range(len(every))[self.rows]
+        windows = [every[k] for k in kept]
         n_frames = len(windows[0].img_paths)
         all_paths = [p for w in windows for p in w.img_paths]
         flat = native_loader.decode_batch(
@@ -69,10 +79,15 @@ class PrefetchingLoader:
             [np.asarray(w.timestamps, np.float32) for w in windows])
         if self.transform is None:
             return imgs, imus, gts, ts
-        out = [
-            self.transform(imgs[k], imus[k], gts[k], ts[k])
-            for k in range(len(windows))
-        ]
+        out = []
+        for k, w in enumerate(every):
+            if k in kept:
+                j = kept.index(k)
+                out.append(self.transform(imgs[j], imus[j], gts[j], ts[j]))
+            else:  # the row's draws only
+                self.transform(np.zeros((n_frames, 1, 1, 3), np.float32),
+                               np.asarray(w.imus, np.float32), np.asarray(w.gts, np.float32),
+                               np.asarray(w.timestamps, np.float32))
         cols = list(zip(*out))
         return tuple(
             np.stack(c, 0).astype(np.float32, copy=False) for c in cols

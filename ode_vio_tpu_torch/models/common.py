@@ -35,20 +35,64 @@ def no_solve(batch: int, device) -> SolveStats:
     return SolveStats(zero, zero, torch.zeros(batch, dtype=torch.int32, device=device))
 
 
-def draw_key(generator: torch.Generator) -> int:
+_MASK64 = (1 << 64) - 1
+
+
+def mix_key(key: int, index: int) -> int:
+    """``key`` for data-parallel rank coordinate ``index``: itself at 0,
+    else splitmix64's finalizer of ``key`` xor the golden-ratio multiple
+    of ``index``."""
+    if index == 0:
+        return key
+    z = (key ^ (index * 0x9E3779B97F4A7C15)) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return z ^ (z >> 31)
+
+
+class RankKeys(NamedTuple):
+    """The train state's generator as the data-parallel rank at data
+    coordinate ``index`` draws from it. The generator is the same on every rank and
+    advances the same: each draw is one key (:func:`draw_key`), mixed with
+    the rank's coordinate (:func:`mix_key`), so ranks drop and sample
+    differently, and a device draw (:func:`on_device`) always goes through
+    such a key."""
+
+    generator: torch.Generator
+    index: int
+
+
+class LaneDraws(NamedTuple):
+    """``generator`` as a replica serving lanes ``start..start+B`` of
+    ``total`` draws from it: hard fusion draws its noise for all ``total``
+    lanes and keeps its own, so replicas that split the lanes draw what
+    one forward over all of them draws."""
+
+    generator: torch.Generator
+    start: int
+    total: int
+
+
+def draw_key(generator) -> int:
     """A 64-bit key drawn from ``generator`` (a CPU generator draws it
-    without waiting for the device)."""
+    without waiting for the device); a :class:`RankKeys` mixes in its
+    rank."""
+    if isinstance(generator, RankKeys):
+        return mix_key(draw_key(generator.generator), generator.index)
     lo, hi = torch.randint(0, 2 ** 32, (2,), dtype=torch.int64, generator=generator,
                            device=generator.device).tolist()
     return lo | hi << 32
 
 
-def on_device(generator: torch.Generator, device: torch.device) -> torch.Generator:
+def on_device(generator, device: torch.device):
     """``generator`` where it lies on ``device``, else a generator on
-    ``device`` seeded with a key drawn from it."""
-    if generator.device == device:
+    ``device`` seeded with a key drawn from it; a :class:`RankKeys` always
+    seeds one, a :class:`LaneDraws` is kept."""
+    if isinstance(generator, LaneDraws):
         return generator
-    return torch.Generator(device).manual_seed(draw_key(generator))
+    if isinstance(generator, RankKeys) or generator.device != device:
+        return torch.Generator(device).manual_seed(draw_key(generator))
+    return generator
 
 
 def train_dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator], *,

@@ -43,6 +43,7 @@ from torch import nn
 
 from ode_vio_tpu_torch.config import ModelConfig
 from ode_vio_tpu_torch.models.common import train_dropout
+from ode_vio_tpu_torch.parallel.mesh import all_sum
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9  # flax's: running = 0.9 * running + 0.1 * batch
@@ -72,15 +73,37 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.compute_dtype)
 
 
+def share_batch_statistics(model: nn.Module, group) -> None:
+    """Make every BatchNorm of ``model`` take its train-mode statistics
+    over the global batch of the data-parallel ``group``'s ranks (None:
+    over this rank's rows alone)."""
+    for m in model.modules():
+        if isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d)):
+            m.stats_group = group
+
+
 def _batchnorm_f32(x: torch.Tensor, bn: nn.BatchNorm1d | nn.BatchNorm2d):
     """BatchNorm over (N, C, ...) in float32, as flax's ``_normalize``
     computes it: with the batch statistics in train mode (updating the
-    running ones), else with the running statistics."""
+    running ones), else with the running statistics. Under
+    :func:`share_batch_statistics` the batch is the data-parallel ranks'
+    global one: the per-channel sums, sums of squares and counts are
+    summed over their group (differentiably, in float64), as XLA computes
+    the statistics of a batch sharded over JAX's ``data`` axis."""
     if bn.training:
         dims = [0, *range(2, x.dim())]
         xf = x.float()
-        mean = xf.mean(dims)
-        var = torch.clamp_min((xf * xf).mean(dims) - mean * mean, 0.0)
+        group = getattr(bn, "stats_group", None)
+        if group is None:
+            mean = xf.mean(dims)
+            ex2 = (xf * xf).mean(dims)
+        else:
+            count = torch.full((1,), x.numel() // x.shape[1], dtype=torch.float64,
+                               device=x.device)
+            sums = all_sum(torch.cat([xf.sum(dims).double(), (xf * xf).sum(dims).double(),
+                                      count]), group)
+            mean, ex2 = (sums[:-1] / sums[-1]).float().chunk(2)
+        var = torch.clamp_min(ex2 - mean * mean, 0.0)
         with torch.no_grad():
             bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean + (1 - BN_MOMENTUM) * mean)
             bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1 - BN_MOMENTUM) * var)

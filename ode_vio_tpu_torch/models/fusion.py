@@ -12,14 +12,22 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ode_vio_tpu_torch.models.common import on_device
+from ode_vio_tpu_torch.models.common import LaneDraws, on_device
 
 
-def gumbel_softmax(logits: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+def gumbel_softmax(logits: torch.Tensor, generator) -> torch.Tensor:
     """Straight-through Gumbel-softmax (tau=1, hard) over the last axis,
-    its noise drawn from ``generator`` (on ``logits``' device)."""
-    u = torch.rand(logits.shape, generator=generator, device=logits.device,
-                   dtype=logits.dtype)
+    its noise drawn from ``generator`` (on ``logits``' device; a
+    ``LaneDraws`` draws for all its lanes and keeps these, the leading
+    axis)."""
+    if isinstance(generator, LaneDraws):
+        n = logits.shape[0]
+        u = torch.rand((generator.total, *logits.shape[1:]), generator=generator.generator,
+                       device=logits.device, dtype=logits.dtype)[generator.start:
+                                                                 generator.start + n]
+    else:
+        u = torch.rand(logits.shape, generator=generator, device=logits.device,
+                       dtype=logits.dtype)
     tiny = torch.finfo(logits.dtype).tiny
     g = -torch.log(-torch.log(u.clamp_min(tiny)))
     y_soft = torch.softmax(logits + g, dim=-1)

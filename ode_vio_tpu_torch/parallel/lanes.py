@@ -1,0 +1,66 @@
+"""Lanes split over replicas of one infer callable, one per device: the
+counterpart of JAX's lanes sharded over a data mesh for eval
+(``data/evaluation.py``) and serving (``serving/engine.py``).
+
+The replicas run one after another in this process, so on one card the
+split buys no speed: it keeps the lane layout of a run over several cards
+and the JAX package's ``--eval_dp``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Sequence
+
+import numpy as np
+import torch
+
+from ode_vio_tpu_torch.config import resolve_device
+
+
+def split_lanes(infer: Callable, devices: Sequence) -> Callable:
+    """``infer``'s contract (``training/loop.py::make_infer_fn``) over its
+    replicas on ``devices``, the counterpart of JAX's lanes sharded over a
+    data mesh, here the replicas of one process. A call's lanes (a multiple of the
+    replicas) are cut into equal contiguous blocks in order: block r runs
+    on ``devices[r]``'s replica with its own carry, its hard-fusion noise
+    the block's slice of a draw for every lane. Inputs may lie anywhere;
+    poses come back on the CPU in lane order, and the carry is the list of
+    the replicas' carries. The replicas count their truncated solves with
+    ``infer``'s own (``incomplete()``; ``incomplete_by_lane`` is theirs in
+    lane order)."""
+    devices = [resolve_device(d) for d in devices]
+    # the first block runs on ``infer`` itself where it lies on its device
+    replicas = [infer if r == 0 and d == infer.device else infer.replicate(d)
+                for r, d in enumerate(devices)]
+    n = len(replicas)
+
+    def split(img, imu, ts, carry=None, active=None):
+        B = img.shape[0]
+        if B % n:
+            raise ValueError(f"{B} lanes do not split over {n} replicas")
+        per = B // n
+        poses, carries = [], []
+        for r, rep in enumerate(replicas):
+            rows = slice(r * per, (r + 1) * per)
+            p, c = rep(*(x[rows].to(rep.device) for x in (img, imu, ts)),
+                       None if carry is None else carry[r],
+                       None if active is None else np.asarray(active)[rows],
+                       lanes=(r * per, B))
+            poses.append(p)
+            carries.append(c)
+        return torch.cat([p.cpu() for p in poses]), carries
+
+    def incomplete_by_lane():
+        lanes = [rep.incomplete_by_lane() for rep in replicas]
+        return None if any(x is None for x in lanes) else np.concatenate(lanes)
+
+    def set_variables(sd: Dict[str, torch.Tensor]) -> None:
+        for rep in replicas:
+            rep.set_variables(sd)
+
+    split.incomplete = infer.incomplete
+    split.incomplete_by_lane = incomplete_by_lane
+    split.reset_incomplete = infer.reset_incomplete
+    split.set_variables = set_variables
+    split.device = None
+    return split

@@ -19,17 +19,23 @@ Sessions are lanes of one fixed-size batch of ``max_sessions``:
   as in the JAX engine.
 * Truncated-solve counts accumulate only for lanes that served a real
   window.
+* The lanes split over ``devices`` (default: the one ``device``) as
+  equal contiguous blocks, one replica of the model per device with its
+  own carry (``parallel/lanes.py::split_lanes``), where JAX shards the lane
+  axis over a data mesh. Hard fusion's noise is drawn for every lane and
+  sliced, so a session's poses do not depend on the split.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ode_vio_tpu_torch.config import resolve_device
 from ode_vio_tpu_torch.models.common import Carry
+from ode_vio_tpu_torch.parallel.lanes import split_lanes
 from ode_vio_tpu_torch.training.loop import make_infer_fn
 
 Window = Tuple[np.ndarray, np.ndarray, np.ndarray]  # (imgs, imus, ts)
@@ -40,6 +46,10 @@ def _leaves(fn: Callable, carry: Carry, *others: Carry) -> Carry:
     if isinstance(carry, dict):
         return {k: fn(v, *(o[k] for o in others)) for k, v in carry.items()}
     return fn(carry, *others)
+
+
+def _first_leaf(carry: Carry) -> torch.Tensor:
+    return next(iter(carry.values())) if isinstance(carry, dict) else carry
 
 
 def _select_lanes(mask: torch.Tensor, new: Carry, old: Carry, axis: int) -> Carry:
@@ -57,21 +67,27 @@ class StreamingEngine:
     submitted session by one window (imgs ``(S, H, W, 3)`` float32, imus
     ``(10*(S-1)+1, 6)``, ts ``(S,)`` strictly ascending on the session's
     own clock); poses are ``(S-1, 6)`` numpy arrays. Sessions not in the
-    dict are untouched. All windows of one call ride one batched forward.
+    dict are untouched. All windows of one call ride one batched forward
+    per device; ``max_sessions`` must be a multiple of the devices.
     """
 
     def __init__(self, model, state_dict=None, max_sessions: int = 8,
-                 fold_bn: bool = True, *, device="cuda"):
+                 fold_bn: bool = True, *, device="cuda", devices: Optional[Sequence] = None):
         self.device = resolve_device(device)
+        devices = [self.device] if devices is None else list(devices)
         self.N = int(max_sessions)
+        if self.N % len(devices):
+            raise ValueError(f"max_sessions={self.N} does not split over {len(devices)} devices")
+        self._per = self.N // len(devices)
         self._axis = model.carry_lane_axis
-        self._infer = make_infer_fn(model, state_dict, fold_bn=fold_bn,
-                                    device=self.device)
+        self._infer = split_lanes(make_infer_fn(model, state_dict, fold_bn=fold_bn,
+                                                device=devices[0]), devices)
         self._free = list(range(self.N - 1, -1, -1))
         self._open: set = set()
         self._fresh: set = set()
         self._t_off = np.zeros(self.N, np.float64)
-        self._carry: Optional[Carry] = None
+        # one carry per device, each over its block of lanes
+        self._carry: Optional[List[Carry]] = None
         self._last: Dict[int, Window] = {}
         self._proto: Optional[Window] = None
 
@@ -83,8 +99,9 @@ class StreamingEngine:
         self._open.add(lane)
         self._fresh.add(lane)
         if self._carry is not None:
+            part, local = divmod(lane, self._per)
             with torch.inference_mode():  # the carry is the engine's own
-                _leaves(lambda leaf: leaf.select(self._axis, lane).zero_(), self._carry)
+                _leaves(lambda leaf: leaf.select(self._axis, local).zero_(), self._carry[part])
         return lane
 
     def close_session(self, sid: int) -> None:
@@ -99,8 +116,9 @@ class StreamingEngine:
                        np.zeros_like(np.asarray(imus, np.float32)),
                        np.arange(len(ts), dtype=np.float32) * 0.1)
 
-    def _put(self, arrays) -> torch.Tensor:
-        return torch.from_numpy(np.stack(arrays, 0)).to(self.device)
+    @staticmethod
+    def _put(arrays) -> torch.Tensor:
+        return torch.from_numpy(np.stack(arrays, 0))
 
     def step(self, windows: Dict[int, Window]) -> Dict[int, np.ndarray]:
         if not windows:
@@ -130,16 +148,14 @@ class StreamingEngine:
         imgs, imus, ts = (self._put([w[k] for w in stacked]) for k in range(3))
 
         active = np.array([ln in windows for ln in range(self.N)])
-        mask = torch.from_numpy(active).to(self.device)
-        if self._carry is None:
-            poses, carry = self._infer(imgs, imus, ts, None, active=active)
-            # lanes that did not really start yet stay zeroed
-            self._carry = _select_lanes(mask, carry, _leaves(torch.zeros_like, carry),
-                                        self._axis)
-        else:
-            poses, carry = self._infer(imgs, imus, ts, self._carry, active=active)
-            self._carry = _select_lanes(mask, carry, self._carry, self._axis)
-        poses = poses.cpu().numpy()
+        poses, carry = self._infer(imgs, imus, ts, self._carry, active=active)
+        # lanes that did not really start yet stay zeroed
+        old = (self._carry if self._carry is not None
+               else [_leaves(torch.zeros_like, c) for c in carry])
+        masks = torch.from_numpy(active).split(self._per)
+        self._carry = [_select_lanes(m.to(_first_leaf(c).device), c, o, self._axis)
+                       for m, c, o in zip(masks, carry, old)]
+        poses = poses.numpy()
         return {sid: poses[sid] for sid in windows}
 
     def warmup(self, proto: Window) -> None:
@@ -160,7 +176,8 @@ class StreamingEngine:
         the first step."""
         if self._carry is None:
             return None
-        return _leaves(lambda leaf: leaf.select(self._axis, sid).clone(), self._carry)
+        part, local = divmod(sid, self._per)
+        return _leaves(lambda leaf: leaf.select(self._axis, local).clone(), self._carry[part])
 
     def incomplete(self) -> int:
         """Running total of ODE solves truncated by the step budget,

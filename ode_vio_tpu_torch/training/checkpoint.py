@@ -10,7 +10,9 @@ generator. Metadata (epoch, best t_rel) go beside it as
 ``<name>.meta.json``. Epoch checkpoints are named ``epoch_%03d``, so
 :meth:`CheckpointManager.latest_epoch` finds the newest as JAX's does.
 Restoring into a fresh :class:`TrainState` gives bitwise the state that
-was saved.
+was saved. Under data parallelism (``parallel/mesh.py``) the ranks hold
+one state bit for bit: rank 0 writes it, every rank waits for the write
+at a barrier, and every rank restores from the file.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ from pathlib import Path
 from typing import TYPE_CHECKING, Optional
 
 import torch
+
+from ode_vio_tpu_torch.parallel.mesh import barrier, is_rank0
 
 if TYPE_CHECKING:
     from ode_vio_tpu_torch.training.loop import TrainState
@@ -39,7 +43,13 @@ class CheckpointManager:
 
     def save(self, name: str, state: TrainState, metadata: Optional[dict] = None) -> None:
         """Write ``state`` under ``directory/name`` (replacing what was
-        there), and ``metadata`` as ``name.meta.json``."""
+        there), and ``metadata`` as ``name.meta.json``; every rank of a
+        process group calls it, rank 0 writes and the others wait."""
+        if is_rank0():
+            self._write(name, state, metadata)
+        barrier()
+
+    def _write(self, name: str, state: TrainState, metadata: Optional[dict]) -> None:
         path = self.path(name)
         path.parent.mkdir(parents=True, exist_ok=True)
         tmp = path.with_suffix(".tmp")

@@ -17,6 +17,19 @@ train state's ``torch.Generator``. The step trains all six pose cores;
 the cde/rde cores integrate through the bounded, differentiable CDE solve
 and never through kernel K2.
 
+Data parallelism (``parallel/mesh.py``): a step built with a ``mesh``
+runs on one rank and takes that rank's rows of the global batch. Its
+BatchNorm statistics are the global batch's (``create_train_state`` with
+the mesh shares them over the data group, and broadcasts rank 0's state);
+the gradients are averaged over the data group as one flat buffer before
+the optimizer clips them, so ``grad_norm`` and the update are the global
+batch's, and the loss metrics are averaged over it and the truncated
+solves summed; every key a step draws is mixed with the rank's data
+coordinate (``models/common.py::RankKeys``), from the one generator every
+rank holds alike. The step is not wrapped in ``DistributedDataParallel``:
+it takes its gradients with ``torch.autograd.grad``, which DDP's reducer
+does not hook. With a mesh of one rank nothing of this runs.
+
 ``make_train_step(cfg, carry=True)`` is the carried step of the
 carried-state exposure (``TrainConfig.carry_exposure``), and
 ``make_streaming_train_step`` the full-sequence TBPTT step
@@ -34,10 +47,11 @@ import numpy as np
 import torch
 
 from ode_vio_tpu_torch.config import Config, resolve_device
-from ode_vio_tpu_torch.models.common import Carry
+from ode_vio_tpu_torch.models.common import Carry, LaneDraws, RankKeys
 from ode_vio_tpu_torch.models.deepvio import DeepVIO, require_ported
-from ode_vio_tpu_torch.models.encoders import ImageEncoder
+from ode_vio_tpu_torch.models.encoders import ImageEncoder, share_batch_statistics
 from ode_vio_tpu_torch.models.fold import fold_batchnorm, fold_batchnorm_into_bias
+from ode_vio_tpu_torch.parallel.mesh import Mesh, replicate
 
 
 def lr_for_epoch(cfg: Config, epoch: int) -> float:
@@ -162,13 +176,19 @@ class TrainState:
 
 
 def create_train_state(cfg: Config, model: DeepVIO, *, seed: Optional[int] = None,
-                       device="cuda") -> TrainState:
+                       device="cuda", mesh: Optional[Mesh] = None) -> TrainState:
     """Move ``model`` to ``device`` in train mode and build its optimizer
-    and a generator seeded with ``seed`` (default ``cfg.train.seed``)."""
+    and a generator seeded with ``seed`` (default ``cfg.train.seed``).
+    Under a ``mesh`` of several ranks its BatchNorms take the global
+    batch's statistics and the state is rank 0's (broadcast)."""
     device = resolve_device(device)
     model = model.to(device).train()
     gen = torch.Generator().manual_seed(cfg.train.seed if seed is None else seed)
-    return TrainState(model, Optimizer(model, cfg), gen)
+    state = TrainState(model, Optimizer(model, cfg), gen)
+    if mesh is not None and mesh.size > 1:
+        share_batch_statistics(model, mesh.groups["data"])
+        replicate(state, mesh)
+    return state
 
 
 def detach_carry(hc: Optional[Carry]) -> Optional[Carry]:
@@ -181,14 +201,23 @@ def detach_carry(hc: Optional[Carry]) -> Optional[Carry]:
     return hc.detach()
 
 
-def _step_parts(cfg: Config, device: torch.device):
-    """What every train step shares: ``features(model, img, gen)``, the
-    visual features as the configuration computes them (the frozen
-    encoder's folded inference graph, the frozen encoder in train mode
-    under no_grad, or the trained encoder), and ``update(state, poses,
-    gts, incomplete)``, which takes the loss, its gradients and the
-    optimizer step and returns the metrics."""
+def _step_parts(cfg: Config, device: torch.device, mesh: Optional[Mesh] = None):
+    """What every train step shares: ``keys(state)``, the randomness a
+    step draws from (the state's generator, or this rank's
+    :class:`RankKeys` of it), ``features(model, img, gen)``, the visual
+    features as the configuration computes them (the frozen encoder's
+    folded inference graph, the frozen encoder in train mode under
+    no_grad, or the trained encoder), ``update(state, poses, gts,
+    incomplete)``, which takes the loss, its gradients (averaged over the
+    mesh's data group) and the optimizer step and returns the metrics,
+    and ``inputs``."""
     t = cfg.train
+    group = None if mesh is None else mesh.groups["data"]
+
+    def keys(state: TrainState):
+        if group is None:
+            return state.generator
+        return RankKeys(state.generator, mesh.coords["data"])
     # the fold targets the plain conv; the int8 and s2d encoders keep their own
     m = cfg.model
     frozen_eval = (t.freeze_encoder and t.frozen_encoder_eval
@@ -218,18 +247,34 @@ def _step_parts(cfg: Config, device: torch.device):
         params = state.optimizer.params
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        metrics = (loss.detach(), angle.detach(), trans.detach())
+        if group is not None:
+            grads, metrics, incomplete = _global_mean(grads, metrics, incomplete, group)
         grad_norm = global_norm(grads)
         state.optimizer.step(grads)
         state.step += 1
-        return {"loss": loss.detach(), "angle_loss": angle.detach(),
-                "trans_loss": trans.detach(), "grad_norm": grad_norm,
-                "solver_incomplete": incomplete}
+        return {"loss": metrics[0], "angle_loss": metrics[1], "trans_loss": metrics[2],
+                "grad_norm": grad_norm, "solver_incomplete": incomplete}
 
     def inputs(img, imu, gts, ts):
         return tuple(torch.as_tensor(a, dtype=torch.float32, device=device)
                      for a in (img, imu, gts, ts))
 
-    return features, update, inputs
+    return keys, features, update, inputs
+
+
+def _global_mean(grads, metrics, incomplete, group):
+    """The gradients and loss metrics averaged over the data ``group``
+    (the gradients as one flat buffer) and the truncated solves summed."""
+    n = torch.distributed.get_world_size(group)
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    torch.distributed.all_reduce(flat, group=group)
+    flat /= n
+    grads = [f.view_as(g) for f, g in zip(flat.split([g.numel() for g in grads]), grads)]
+    packet = torch.stack([*(m.double() for m in metrics), incomplete.double()])
+    torch.distributed.all_reduce(packet, group=group)
+    metrics = tuple((packet[i] / n).float() for i in range(len(metrics)))
+    return grads, metrics, packet[-1].to(incomplete.dtype)
 
 
 def carry_split(cfg: Config) -> int:
@@ -248,7 +293,8 @@ def carry_split(cfg: Config) -> int:
     return k
 
 
-def make_train_step(cfg: Config, carry: bool = False, *, device="cuda") -> Callable:
+def make_train_step(cfg: Config, carry: bool = False, *, device="cuda",
+                    mesh: Optional[Mesh] = None) -> Callable:
     """Build ``train_step(state, img, imu, gts, ts) -> (state, metrics)``:
     one forward, backward and optimizer update of ``state`` in place, on
     ``device``. Inputs in the JAX package's layout (numpy or tensors): img
@@ -266,14 +312,19 @@ def make_train_step(cfg: Config, carry: bool = False, *, device="cuda") -> Calla
     fresh, its final hidden state is detached and seeds segment 2 (pose
     steps ``k..S-2``), and the loss covers both segments' poses. The
     inertial encoder runs once per segment, so its BatchNorm statistics
-    move twice."""
+    move twice.
+
+    Under a ``mesh`` of several ranks the step takes this rank's rows of
+    the global batch (``parallel/mesh.py::shard_batch``) and ``state``
+    from ``create_train_state`` with the same mesh; the module docstring
+    says what the ranks share."""
     device = resolve_device(device)
     require_ported(cfg.model.model_type)
-    features, update, inputs = _step_parts(cfg, device)
+    keys, features, update, inputs = _step_parts(cfg, device, mesh)
     k = carry_split(cfg) if carry else None
 
     def train_step(state: TrainState, img, imu, gts, ts) -> Tuple[TrainState, Dict]:
-        model, gen = state.model, state.generator
+        model, gen = state.model, keys(state)
         img, imu, gts, ts = inputs(img, imu, gts, ts)
         fv = features(model, img, gen)
         if k is None:
@@ -291,7 +342,8 @@ def make_train_step(cfg: Config, carry: bool = False, *, device="cuda") -> Calla
     return train_step
 
 
-def make_streaming_train_step(cfg: Config, *, device="cuda") -> Callable:
+def make_streaming_train_step(cfg: Config, *, device="cuda",
+                              mesh: Optional[Mesh] = None) -> Callable:
     """Build the full-sequence TBPTT step ``step(state, img, imu, gts, ts,
     hc=None) -> (state, metrics, hc_out)``: the train step of
     :func:`make_train_step` from the carried hidden state ``hc`` (``None``
@@ -300,13 +352,14 @@ def make_streaming_train_step(cfg: Config, *, device="cuda") -> Callable:
     window's gradient stops at the boundary (a window-length truncation
     horizon; the state's horizon is the chain). The caller resets the
     carry every ``tbptt_chain`` steps, where ``StreamingChainSampler``
-    starts its chains."""
+    starts its chains. A ``mesh`` is as in :func:`make_train_step`; ``hc``
+    holds this rank's rows."""
     device = resolve_device(device)
     require_ported(cfg.model.model_type)
-    features, update, inputs = _step_parts(cfg, device)
+    keys, features, update, inputs = _step_parts(cfg, device, mesh)
 
     def step(state: TrainState, img, imu, gts, ts, hc: Optional[Carry] = None):
-        model, gen = state.model, state.generator
+        model, gen = state.model, keys(state)
         img, imu, gts, ts = inputs(img, imu, gts, ts)
         fv = features(model, img, gen)
         poses, h_T, stats = model.pose_from_visual(fv, imu, ts, hc, generator=gen)
@@ -318,9 +371,9 @@ def make_streaming_train_step(cfg: Config, *, device="cuda") -> Callable:
 
 def make_infer_fn(model: DeepVIO, state_dict: Optional[Dict[str, torch.Tensor]] = None,
                   fold_bn: bool = False, *, device="cuda") -> Callable:
-    """Build ``infer(img, imu, ts, carry=None, active=None) -> (poses,
-    carry)`` on ``device``: the cold-start call without a carry, the
-    carried call with one.
+    """Build ``infer(img, imu, ts, carry=None, active=None, lanes=None) ->
+    (poses, carry)`` on ``device``: the cold-start call without a carry,
+    the carried call with one.
 
     The callable holds its own copy of the model, loaded from
     ``state_dict`` (default: ``model.state_dict()``). ``fold_bn=True``
@@ -329,55 +382,80 @@ def make_infer_fn(model: DeepVIO, state_dict: Optional[Dict[str, torch.Tensor]] 
     BatchNorm runs; with ``encoder_int8`` or ``encoder_s2d``, whose convs
     are not the plain one, it folds by value and keeps the BatchNorms as
     identity plus shift (the int8 conv then quantizes the folded kernel).
-    ``infer.set_variables(state_dict)`` swaps the weights.
+    ``infer.set_variables(state_dict)`` swaps the weights, and
+    ``infer.replicate(device)`` is a callable like it on ``device`` with
+    its weights.
 
     Truncated solves are counted on the device per batch lane:
     ``infer.incomplete()`` is the running total and
     ``infer.incomplete_by_lane()`` the per-lane vector. ``active``, a
     boolean lane mask, keeps lanes that serve no real window out of the
     counts. Hard fusion draws its Gumbel noise from a generator seeded
-    with 0 on every call, as the JAX callable applies ``PRNGKey(0)``.
-    ``infer.device`` is the device its inputs must be on.
+    with 0 on every call, as the JAX callable applies ``PRNGKey(0)``;
+    ``lanes=(start, total)`` says that the call's lanes are
+    ``start..start+B`` of ``total`` (``parallel/lanes.py::split_lanes``),
+    and the noise is drawn for all ``total`` and sliced. ``infer.device`` is the device
+    its inputs must be on.
     """
     device = resolve_device(device)
     cfg = model.cfg
     strip_bn = fold_bn and not (cfg.encoder_int8 or cfg.encoder_s2d or cfg.skip_bn)
     if strip_bn:
         cfg = dataclasses.replace(cfg, skip_bn=True)
-    with torch.device("meta"):
-        net = DeepVIO(cfg, model.solver, model.cde_solver)
-    net = net.to_empty(device=device).eval()
     fold = fold_batchnorm_into_bias if strip_bn else fold_batchnorm if fold_bn else dict
+    sd = model.state_dict() if state_dict is None else state_dict
+    return _infer_fn(cfg, model.solver, model.cde_solver, fold(sd), fold, device, {})
+
+
+def _infer_fn(cfg, solver, cde_solver, folded: Dict[str, torch.Tensor], fold: Callable,
+              device: torch.device, counts: dict) -> Callable:
+    """:func:`make_infer_fn`'s callable over a model of ``cfg`` on
+    ``device`` holding the already folded ``folded``. ``counts`` holds,
+    per callable made from one :func:`make_infer_fn` (it and its
+    replicas), its truncated solves and per-lane vector: ``incomplete()``
+    and ``reset_incomplete()`` cover them all."""
+    me = len(counts)
+    with torch.device("meta"):
+        net = DeepVIO(cfg, solver, cde_solver)
+    net = net.to_empty(device=device).eval()
+    net.load_state_dict(folded, strict=True)
 
     def set_variables(sd: Dict[str, torch.Tensor]) -> None:
         net.load_state_dict(fold(sd), strict=True)
 
-    set_variables(model.state_dict() if state_dict is None else state_dict)
     hard = cfg.fuse_method == "hard"
 
     @torch.inference_mode()
-    def infer(img, imu, ts, carry=None, active=None):
-        gen = torch.Generator(device).manual_seed(0) if hard else None
+    def infer(img, imu, ts, carry=None, active=None, lanes=None):
+        gen = None
+        if hard:
+            gen = torch.Generator(device).manual_seed(0)
+            if lanes is not None:
+                gen = LaneDraws(gen, *lanes)
         poses, carry, stats = net(img, imu, ts, carry, generator=gen)
         inc = stats.incomplete
         if active is not None:
             inc = inc * torch.as_tensor(np.asarray(active), device=device).to(inc.dtype)
-        infer._inc_total += inc.sum()
-        if infer._inc_lanes is None or infer._inc_lanes.shape != inc.shape:
-            infer._inc_lanes = inc.clone()  # lane layout changed: restart
+        mine = counts[me]
+        mine["total"] += inc.sum()
+        if mine["lanes"] is None or mine["lanes"].shape != inc.shape:
+            mine["lanes"] = inc.clone()  # lane layout changed: restart
         else:
-            infer._inc_lanes += inc
+            mine["lanes"] += inc
         return poses, carry
 
     def reset_incomplete() -> None:
-        infer._inc_total = torch.zeros((), dtype=torch.int64, device=device)
-        infer._inc_lanes = None
+        for c in counts.values():
+            c.update(total=torch.zeros((), dtype=torch.int64, device=c["device"]), lanes=None)
 
+    counts[me] = {"device": device}
     reset_incomplete()
-    infer.incomplete = lambda: int(infer._inc_total)
+    infer.incomplete = lambda: sum(int(c["total"]) for c in counts.values())
     infer.incomplete_by_lane = lambda: (
-        None if infer._inc_lanes is None else infer._inc_lanes.cpu().numpy())
+        None if counts[me]["lanes"] is None else counts[me]["lanes"].cpu().numpy())
     infer.reset_incomplete = reset_incomplete
     infer.set_variables = set_variables
+    infer.replicate = lambda dev: _infer_fn(cfg, solver, cde_solver, net.state_dict(), fold,
+                                            resolve_device(dev), counts)
     infer.device = device
     return infer

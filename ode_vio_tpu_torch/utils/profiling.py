@@ -35,17 +35,27 @@ def annotate(name: str):
 
 
 @contextlib.contextmanager
-def trace(log_dir):
+def trace(log_dir, warmup_steps: int = 0):
     """Profile the block: host activity, and the card's where CUDA is
     available; on exit the trace is written to
     ``log_dir/trace_<pid>_<ns>.json`` (Chrome trace format, which Perfetto
-    and ``chrome://tracing`` open). Yields the profiler."""
+    and ``chrome://tracing`` open). Yields the profiler.
+
+    With ``warmup_steps`` the collection starts at once and the trace after
+    that many ``prof.step()`` calls (torch.profiler's warm-up): on an H100
+    a trace begun without one lost, in some runs, the records of its first
+    ~40 kernels and copies, which the warm-up steps take instead."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     out = Path(log_dir)
     out.mkdir(parents=True, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
+    schedule = None
+    if warmup_steps:
+        def schedule(step):
+            return (torch.profiler.ProfilerAction.WARMUP if step < warmup_steps
+                    else torch.profiler.ProfilerAction.RECORD)
+    with torch.profiler.profile(activities=activities, schedule=schedule) as prof:
         yield prof
     prof.export_chrome_trace(str(out / f"trace_{os.getpid()}_{time.time_ns()}.json"))
 

@@ -3,19 +3,19 @@ the JAX package's ``cli.test``, both given the same reference-layout
 ``.npz`` (JAX's ``export_deepvio``), summary means within rtol 1e-3;
 ``cli.serve`` single- and multi-session with the JAX package's report
 keys; the plot command line; and the readable exits: a checkpoint of
-another ``--model_type``, a JAX checkpoint directory, and every flag whose
-feature the port does not have yet (in ``cli.train`` too)."""
+another ``--model_type``, a JAX checkpoint directory, and the mesh flags
+that ask for more than there is (in ``cli.train`` too)."""
 
 import re
 import sys
 
 import numpy as np
 import pytest
+import torch
 
 from ode_vio_tpu.cli.test import main as jax_test_main
 from ode_vio_tpu.data.synthetic import make_kitti_tree
 from ode_vio_tpu.models.convert import export_deepvio, trunk_out_hw
-from ode_vio_tpu_torch.cli import flags
 from ode_vio_tpu_torch.cli.plot import main as plot_main
 from ode_vio_tpu_torch.cli.serve import main as serve_main
 from ode_vio_tpu_torch.cli.test import main as cli_test_main
@@ -144,20 +144,38 @@ def test_directory_pretrain_exits(setup):
                        "--pretrain", str(ckpt)])
 
 
-UNPORTED_ARGS = {name: ([f"--{name}"] if unset is False else [f"--{name}", "3"])
-                 for name, (unset, _) in flags.UNPORTED.items()}
-UNPORTED_ARGS.update({
-    "eval_dp": ["--eval_dp", "2"],
-    "mesh_data": ["--mesh_data", "4"],
-})
+# the flags the port once refused as unported, each with a value that
+# breaks the mesh on a host of CARDS cards: (flags, the command lines, the
+# error); --eval_dp splits eval and serving lanes, and cli.train ignores it
+CARDS = 2
+MESH_ERRORS = {
+    "eval_dp": (["--device", "cuda", "--eval_dp", "3"], ("test", "serve"),
+                "--eval_dp 3: 3 devices asked for and this host has 2 CUDA cards"),
+    "mesh_data": (["--device", "cuda", "--mesh_data", "4"], ("train",),
+                  "--mesh_data 4 x --mesh_model 1 needs 4 devices and there are 2"),
+    "mesh_model": (["--device", "cuda", "--mesh_model", "3"], ("train",),
+                   "--mesh_model 3 does not fit 2 devices"),
+    "multihost": (["--device", "cpu", "--multihost"], ("test", "serve", "train"),
+                  "--multihost needs the launcher's variables; missing: MASTER_ADDR, "
+                  "MASTER_PORT, RANK (or SLURM_PROCID), WORLD_SIZE (or SLURM_NTASKS), "
+                  "LOCAL_RANK (or SLURM_LOCALID)"),
+}
 
 
-@pytest.mark.parametrize("name", sorted(UNPORTED_ARGS))
-def test_unported_flag_exits(setup, name):
-    """Every unported flag raises SystemExit naming its ROADMAP.md item,
-    before any work is done, in every command line."""
+@pytest.mark.parametrize("name", sorted(MESH_ERRORS))
+def test_unported_flag_exits(setup, name, monkeypatch):
+    """The mesh flags, once refused as unported, now raise the mesh's own
+    errors as SystemExit before any work is done: more cards than the host
+    has (it reports CARDS here), a model axis larger than the cards, and
+    --multihost without the launcher's variables."""
     _, _, _, common = setup
-    for main in (cli_test_main, serve_main, train_main):
-        with pytest.raises(SystemExit, match="ROADMAP.md"):
-            main(["--experiment_name", "unported", "--device", "cpu", *common,
-                  *UNPORTED_ARGS[name]])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: CARDS)
+    for var in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK",
+                "SLURM_PROCID", "SLURM_NTASKS", "SLURM_LOCALID"):
+        monkeypatch.delenv(var, raising=False)
+    args, commands, error = MESH_ERRORS[name]
+    mains = {"test": cli_test_main, "serve": serve_main, "train": train_main}
+    for command in commands:
+        with pytest.raises(SystemExit, match=f"^{re.escape(error)}$"):
+            mains[command](["--experiment_name", "mesh_errors", *common, *args])

@@ -281,7 +281,8 @@ def trace_events(directory):
 
 def test_profile_dir_traces_steps_of_the_first_epoch(tmp_path):
     """``cli.train --profile_dir`` on a CPU epoch of 5 or more steps: one
-    trace of steps 1-4 holding the trunk's convolutions."""
+    trace of steps 1-4 (step 0 the profiler's warm-up, left out) holding
+    the trunk's convolutions."""
     root = make_kitti_tree(tmp_path / "kitti", seqs=("05",), n_frames=24, img_hw=(32, 64),
                            speed_scale=50.0)
     timing = {}
@@ -295,6 +296,8 @@ def test_profile_dir_traces_steps_of_the_first_epoch(tmp_path):
     assert len(timing["epochs"][0]["steps"]) >= 5
     names = {e.get("name") for e in trace_events(tmp_path / "prof")}
     assert "aten::convolution" in names
+    assert {n for n in names if str(n).startswith("ProfilerStep#")} == {
+        f"ProfilerStep#{i}" for i in range(1, 5)}
 
 
 def test_profile_dir_closes_a_short_epoch(tmp_path):

@@ -8,7 +8,9 @@ from the repository's root with
     python -m pytest --noconftest -m gpu tests/test_torch_port_gpu.py
 
 K2's cases are chip_smoke.py's CDE_CASES, checked by its check_cde_case;
-K3's are its DROPOUT_CASES, checked by check_dropout_case."""
+K3's are its DROPOUT_CASES, checked by check_dropout_case. The mesh's
+cases (two ranks, and two eval and serving replicas, sharing the one
+card) call its train_mesh, serve_mesh and eval_lanes at tiny widths."""
 
 import dataclasses
 
@@ -584,3 +586,104 @@ def test_debug_nans_raises_on_gpu():
         model(img, imu, ts)
         with debug_nans(), pytest.raises(FloatingPointError):
             model(img, imu, ts)
+
+
+@pytest.fixture
+def no_tf32():
+    """float32 matmuls and convs in float32, as chip_smoke.py's env() sets
+    them (cuDNN takes TF32 by default): the mesh cases compare float32
+    runs at other batch sizes."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+@pytest.mark.gpu
+def test_two_ranks_share_the_card_on_gpu(no_tf32):
+    """chip_smoke.train_mesh at tiny widths: two ranks on cuda:0 over gloo,
+    2 steps at B=4 global: K3 9 a step on each rank, the ranks' states bit
+    for bit equal after every step, their keys different, the float32
+    step's loss and gradient norm within 1e-4 of one process's (train_mesh
+    raises otherwise)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import chip_smoke
+    from ode_vio_tpu_torch.config import Config, ModelConfig, TrainConfig
+
+    cfg = Config(model=ModelConfig(**TINY_TRAIN),
+                 train=TrainConfig(batch_size=4, freeze_encoder=True))
+    out = chip_smoke.train_mesh(torch.device("cuda", 0), cfg, 2, k3_per_step=9)
+    assert out["k3"] == 2 * 2 * 9
+    parity = out["report"]["parity_float32"]
+    assert parity["loss_rel"] <= chip_smoke.MESH_STEP_RTOL
+    assert parity["grad_norm_rel"] <= chip_smoke.MESH_STEP_RTOL
+
+
+@pytest.mark.gpu
+def test_engine_replicas_share_the_card_on_gpu(no_tf32):
+    """chip_smoke.serve_mesh at tiny widths (seq_len 11, float32): 4
+    sessions over two replicas on cuda:0 against one engine: K1 10 a step
+    per replica, every session within 1e-5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import chip_smoke
+    from ode_vio_tpu_torch.config import Config, ModelConfig
+
+    dev = torch.device("cuda", 0)
+    cfg = Config(model=ModelConfig(**dict(TINY_TRAIN, seq_len=11)))
+    launches, gap, _, _ = chip_smoke.serve_mesh(dev, cfg, [dev, dev])
+    assert launches == len(chip_smoke.SCHEDULE) * 10 * 2
+    assert gap <= chip_smoke.MESH_POSE_ATOL["float32"]
+
+
+@pytest.mark.gpu
+def test_eval_lanes_split_on_gpu(tmp_path, no_tf32):
+    """chip_smoke.eval_lanes at tiny widths on a tiny tree: 2 runs of two
+    sequences (4 lanes) over two replicas on cuda:0 against one device:
+    K1 3 a window step per replica (seq_len 4), each lane within 1e-5
+    (float32)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import chip_smoke
+    from ode_vio_tpu_torch.config import Config, DataConfig, ModelConfig
+    from ode_vio_tpu_torch.data.synthetic import make_kitti_tree
+    from ode_vio_tpu_torch.models.deepvio import create_model
+
+    dev = torch.device("cuda", 0)
+    root = make_kitti_tree(tmp_path / "kitti", seqs=("05", "07"), n_frames=24,
+                           img_hw=(32, 64), speed_scale=50.0)
+    cfg = Config(model=ModelConfig(**TINY_TRAIN), data=DataConfig(eval_data_dropout=0.3))
+    model = create_model(cfg, seed=0, device=dev)
+    one = chip_smoke.eval_lanes(model, root, cfg, dev, None, ("05", "07"), k1_per_step=3)
+    split = chip_smoke.eval_lanes(model, root, cfg, dev, [dev, dev], ("05", "07"),
+                                  k1_per_step=3)
+    assert split["k1"] == 2 * one["k1"]
+    assert chip_smoke.lane_gap(one["poses"], split["poses"]) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_cde_eval_lanes_split_on_gpu(tmp_path, no_tf32):
+    """chip_smoke.eval_lanes with the cde core at tiny widths: 2 runs of
+    sequence 05 over two replicas on cuda:0 (a lane each, K2 once a
+    window step per replica) against each run unsplit in a call of its
+    own, which is what a replica computes: each lane within 1e-5
+    (float32)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import chip_smoke
+    from ode_vio_tpu_torch.config import Config, DataConfig, ModelConfig
+    from ode_vio_tpu_torch.data.synthetic import make_kitti_tree
+    from ode_vio_tpu_torch.models.deepvio import create_model
+
+    dev = torch.device("cuda", 0)
+    root = make_kitti_tree(tmp_path / "kitti", seqs=("05",), n_frames=24,
+                           img_hw=(32, 64), speed_scale=50.0)
+    cfg = Config(model=ModelConfig(**dict(TINY_TRAIN, model_type="cde")),
+                 data=DataConfig(eval_data_dropout=0.3))
+    model = create_model(cfg, seed=0, device=dev)
+    alone = [chip_smoke.eval_lanes(model, root, cfg, dev, None, ("05",), k2_per_step=1,
+                                   runs=(run,)) for run in range(2)]
+    split = chip_smoke.eval_lanes(model, root, cfg, dev, [dev, dev], ("05",), k2_per_step=1)
+    assert split["k2"] == sum(a["k2"] for a in alone) > 0
+    assert chip_smoke.lane_gap([p for a in alone for p in a["poses"]], split["poses"]) <= 1e-5
