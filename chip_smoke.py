@@ -188,6 +188,22 @@ Phases, one line each, any failure ends the run with a non-zero exit:
           the card, in bf16 and float32, each lane against the unsplit run
           within 1e-3 / 1e-5, K1 10 a window step a replica; the cde model
           on 05 twice split over the replicas, K2 once a window a replica
+  entry   ode_vio_tpu_torch/entry.py::entry(): the flagship forward (seed-0
+          weights) on its batch-1 example, K1 10 launches, finite poses
+          within 1e-3 of the same weights through make_infer_fn with
+          use_kernels=False; both timed with CUDA events
+  dryrun_multichip  entry.py::dryrun_multichip(4): JAX's tiny training
+          configuration on a (2, 2) mesh of four ranks sharing the card over
+          gloo, the weights param_sharding_rules names split over the model
+          axis (each rank stores half of them, their Adam moments and
+          accumulation mean), one two-step accumulation cycle with K3 18 a
+          step on every rank; JAX's ok line and each rank's stored bytes.
+          Then the same without dropout against one process unsplit: loss,
+          grad_norm and the gathered trained tensors within 1e-4, the stored
+          bytes the unsplit process's less half of the split ones
+  learn   the odometric convergence recipe (experiments/convergence.py, JAX's
+          tests/test_convergence.py) on the card: eval RMSE after training
+          below half the untrained model's; K3 18 a step, K1 3 an eval window
   seconds  each phase's wall time
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero and prints
@@ -2975,6 +2991,170 @@ def mesh(dev, work: Path, root) -> dict:
             "k3": {"train_mesh": train["k3"], "train_cli_mesh": cli["k3"]}}
 
 
+# -- entry.py's entry points and the learning check ---------------------------
+DRYRUN_DEVICES = 4           # JAX's dryrun_multichip(4): a (2, 2) mesh, 4 ranks on the card
+ENTRY_RUNS = 10
+
+
+def entry_phase(dev) -> dict:
+    """entry(): the flagship forward at flagship width (seed-0 weights) on
+    its batch-1 example, K1 10 launches (a window's frame intervals), the
+    counts set to 0 just before and read just after; finite poses (1, 10,
+    6) within EVAL_POSE_ATOL of the same weights through make_infer_fn
+    with use_kernels=False (the slice phase's limit); both timed with
+    CUDA events."""
+    from ode_vio_tpu_torch.entry import entry
+
+    t = time.perf_counter()
+    fn, args = entry()
+    build_s = time.perf_counter() - t
+    cuda_kernels.reset_launch_counts()          # this path's run starts here
+    poses = fn(*args)
+    torch.cuda.synchronize()
+    k1 = cuda_kernels.fused_ode_solve.launches
+    cfg = flagship_config()
+    check_launches("entry K1", k1, cfg.model.seq_len - 1)
+    check_launches("entry K2", cuda_kernels.fused_cde_solve.launches, 0)
+    if tuple(poses.shape) != (1, cfg.model.seq_len - 1, 6) or not torch.isfinite(poses).all():
+        raise AssertionError(f"entry: poses {tuple(poses.shape)}, finite "
+                             f"{bool(torch.isfinite(poses).all())}")
+    infer = make_infer_fn(meta_model(cfg, use_kernels=False), fn.model.state_dict(), device=dev)
+    ref, _ = infer(*args)
+    gap = float((poses - ref).abs().max())
+    if gap > EVAL_POSE_ATOL:
+        raise AssertionError(f"entry: poses {gap} from the solver core's (limit {EVAL_POSE_ATOL})")
+    report = {"build_s": build_s, "k1_launches": k1, "poses_shape": list(poses.shape),
+              "max_abs_pose_diff_to_solver_core": gap, "pose_atol": EVAL_POSE_ATOL,
+              "ms": cuda_ms(lambda: fn(*args), runs=ENTRY_RUNS),
+              "solver_core_ms": cuda_ms(lambda: infer(*args), runs=ENTRY_RUNS)}
+    phase("entry", **report)
+    del fn, infer
+    torch.cuda.empty_cache()
+    return {"k1": k1}
+
+
+def dryrun_reference(cfg, dev) -> tuple:
+    """``cfg``'s dryrun in this process, unsplit: its two steps' metrics,
+    the trained tensors, the mean of the two steps' gradients (the
+    accumulation cycle's update) and what it stores."""
+    from ode_vio_tpu_torch.entry import dryrun_batch, stored_bytes
+
+    model = create_model(cfg, seed=SEED, device=dev, train=True)
+    state = create_train_state(cfg, model, seed=SEED + 1, device=dev)
+    seen = record_grads(state)
+    step = make_train_step(cfg, device=dev)
+    batch = dryrun_batch(cfg, dev)
+    metrics = []
+    for _ in range(2):
+        state, m = step(state, *batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+    mean = {k: (seen[0][k] + seen[1][k]) / 2 for k in seen[0]}
+    return metrics, trained_tensors(state), mean, stored_bytes(state)
+
+
+def dryrun_rank(dev, cfg, shape) -> dict:
+    """One rank of the dryrun's parity run: entry.dryrun_steps with TF32
+    off, as env() sets it for the one process it is held against (a
+    spawned rank starts with PyTorch's defaults: cuDNN in TF32)."""
+    from ode_vio_tpu_torch.entry import dryrun_steps
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return dryrun_steps(dev, cfg, shape)
+
+
+def dryrun_phase(dev) -> dict:
+    """dryrun_multichip(4): JAX's tiny configuration (image encoder
+    trained, trunk dropout through K3) on a (2, 2) mesh of four ranks
+    sharing the card over gloo, each storing half of every weight the
+    rules split, for one cycle of two-step accumulation: JAX's ok line,
+    the ranks' metrics equal, K3 18 a step on every rank (the trunk's 9
+    forward and 9 backward), each rank's parameters the unsplit model's
+    less half of the split ones. Then the same configuration without
+    dropout (the frozen encoder's folded graph, so that the ranks draw
+    nothing) on the four ranks against one process unsplit on the global
+    batch: both steps' loss and grad_norm within MESH_STEP_RTOL, the
+    gathered trained tensors too where the gradient clears rounding
+    (clear_gaps), and the stored bytes of parameters and optimizer state
+    the unsplit process's less half of the split ones."""
+    from ode_vio_tpu_torch.entry import dryrun_config, dryrun_multichip
+    from ode_vio_tpu_torch.parallel.mesh import launch
+
+    cfg, shape = dryrun_config(DRYRUN_DEVICES)
+    t = time.perf_counter()
+    ranks = dryrun_multichip(DRYRUN_DEVICES, "cuda")
+    wall = time.perf_counter() - t
+    with torch.device("meta"):
+        whole_bytes = sum(p.numel() * p.element_size()
+                          for p in DeepVIO(cfg.model, cfg.solver, cfg.cde_solver_cfg).parameters())
+    k3 = 0
+    for r in ranks:
+        want = {"fused_dropout": 18 * 2, "fused_ode_solve": 0, "fused_cde_solve": 0}
+        if r["launches"] != want:
+            raise AssertionError(f"dryrun_multichip rank {r['rank']}: launches {r['launches']}, "
+                                 f"expected {want}")
+        k3 += r["launches"]["fused_dropout"]
+        b = r["stored_bytes"]
+        if r["metrics"] != ranks[0]["metrics"] or not b["params_split"] or \
+                b["params"] + b["params_split"] != whole_bytes:
+            raise AssertionError(f"dryrun_multichip rank {r['rank']}: metrics {r['metrics']}, "
+                                 f"stored {b}, unsplit parameters {whole_bytes} bytes")
+    quiet = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, freeze_encoder=True, frozen_encoder_eval=True))
+    split = launch(dryrun_rank, [dev] * DRYRUN_DEVICES, quiet, shape, backend="gloo")
+    metrics, want, grads, one_bytes = dryrun_reference(quiet, dev)
+    gaps = clear_gaps(split[0]["state"], want, grads, MESH_STEP_RTOL)
+    rel = {f"{k}_step{i}": abs(got[k] - ref[k]) / abs(ref[k])
+           for i, (got, ref) in enumerate(zip(split[0]["metrics"], metrics))
+           for k in ("loss", "grad_norm")}
+    bytes_ok = all(r["stored_bytes"][k] + r["stored_bytes"][f"{k}_split"] == one_bytes[k]
+                   and r["stored_bytes"][f"{k}_split"] > 0
+                   for r in split for k in ("params", "optimizer"))
+    report = {"mesh": dict(zip(("data", "model"), shape)), "ranks": DRYRUN_DEVICES,
+              "backend": "gloo", "wall_s": wall, "losses": [m["loss"] for m in ranks[0]["metrics"]],
+              "stored_bytes": [r["stored_bytes"] for r in ranks], "k3_launches": k3,
+              "parity": {"rel": rel, "worst_tensor_gap_over_limit": max(gaps.values()),
+                         "tensors": len(gaps), "rtol": MESH_STEP_RTOL,
+                         "stored_bytes_split": split[0]["stored_bytes"],
+                         "stored_bytes_one_process": one_bytes}}
+    phase("dryrun_multichip", **report)
+    if max(rel.values()) > MESH_STEP_RTOL or max(gaps.values()) > 1.0 or not bytes_ok:
+        bad = {k: v for k, v in gaps.items() if v > 1.0}
+        raise AssertionError(f"dryrun_multichip: split against one process: {rel}, tensors "
+                             f"over the limit {bad}, stored bytes as expected {bytes_ok}")
+    torch.cuda.empty_cache()
+    return {"k3": k3}
+
+
+def learn_phase(dev, work: Path) -> dict:
+    """The odometric convergence recipe (experiments/convergence.py, JAX's
+    tests/test_convergence.py) on the card: the eval RMSE after training
+    below 0.5x the untrained model's; K3 18 a train step (the trunk trains),
+    K1 a frame interval of each eval window, before and after, the counts
+    set to 0 just before and read just after."""
+    from ode_vio_tpu_torch.experiments.convergence import (IMG_HW, SEQ_LEN, learn,
+                                                          make_tree)
+
+    root = make_tree("odometric", work / "learn")
+    cuda_kernels.reset_launch_counts()          # this path's run starts here
+    t = time.perf_counter()
+    out = learn("odometric", root, device=dev)
+    wall = time.perf_counter() - t
+    k1, k3 = cuda_kernels.fused_ode_solve.launches, cuda_kernels.fused_dropout.launches
+    windows = len(EvalPartition(root, "05", SEQ_LEN, IMG_HW, 0.0, None))
+    check_launches("learn K3", k3, 18 * len(out["losses"]))
+    check_launches("learn K1", k1, 2 * windows * (SEQ_LEN - 1))
+    check_launches("learn K2", cuda_kernels.fused_cde_solve.launches, 0)
+    phase("learn", wall_s=wall, train_seconds=out["train_seconds"], epochs=out["epochs"],
+          steps=len(out["losses"]), first_loss=out["losses"][0], last_loss=out["losses"][-1],
+          eval_rmse_before=out["before"], eval_rmse_after=out["after"],
+          ratio=out["after"] / out["before"], limit=0.5, k1=k1, k3=k3)
+    if not out["after"] < 0.5 * out["before"]:
+        raise AssertionError(f"learn: eval RMSE {out['before']} -> {out['after']}, not below "
+                             "half")
+    return {"k1": k1, "k3": k3}
+
+
 def main() -> None:
     seconds = {}
 
@@ -3011,11 +3191,14 @@ def main() -> None:
         enc = timed("encoders", encoders_phase, dev, work, root, cli["pth"])
         edg = timed("edges", edges, dev, work, root)
         msh = timed("mesh", mesh, dev, work, root)
+        ent = timed("entry", entry_phase, dev)
+        dry = timed("dryrun_multichip", dryrun_phase, dev)
+        lrn = timed("learn", learn_phase, dev, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     k1_by_path = {"slice": k1_launches, **ev["launches"], "eval_cli": cli["k1"],
                   **serve_launches, **tcli["k1"], **carry["k1"], **modes["k1"], **enc["k1"],
-                  **edg["k1"], **msh["k1"]}
+                  **edg["k1"], **msh["k1"], "entry": ent["k1"], "learn_eval": lrn["k1"]}
     k2_by_path["eval_cli_cde"] = cli["k2"]
     k2_by_path["train_cli_cde_eval"] = tcde["k2"]
     k2_by_path["train_tbptt_eval"] = tbptt["k2"]
@@ -3024,7 +3207,8 @@ def main() -> None:
     k3_by_path = timed("train", train_phases, dev)
     k3_by_path.update(tcli["k3"], train_cli_cde=tcde["k3"], train_rde=tcde["k3_rde"],
                       train_tbptt=tbptt["k3"], **carry["k3"], **k3_cores, **modes["k3"],
-                      **enc["k3"], **edg["k3"], **msh["k3"])
+                      **enc["k3"], **edg["k3"], **msh["k3"], dryrun_multichip=dry["k3"],
+                      learn=lrn["k3"])
     phase("seconds", **seconds)
     print(json.dumps({"kernels": [
         {"name": "fused_ode_solve", "route": "cuda",

@@ -15,8 +15,13 @@ of the grid, so a collective runs over one axis:
   * axis ``model``: ranks that share a data coordinate take the same rows
     and compute the same step, as JAX's ``P("data")`` replicates the
     batch over ``model``. :func:`param_sharding_rules` says which weights
-    JAX would split over it; the train step keeps them replicated, as the
-    JAX command line does.
+    JAX splits over it. ``create_train_state(..., split_params=True)``
+    applies the rules (:func:`split_parameters`): each rank then stores
+    only its slice of those weights, their Adam moments and accumulation
+    mean, and the train step gathers the whole weights over the model
+    group once a step (:meth:`ModelSplit.gathered`). ``dryrun_multichip``
+    (``entry.py``) does so, as JAX's does; ``cli.train --mesh_model``
+    keeps every weight whole on every rank, as the JAX command line does.
 
 A world of one process has no process group and calls no collective.
 Ranks are started by :func:`launch` (one process per device of this
@@ -29,6 +34,7 @@ variables). Every address and rank is given explicitly. The backend is
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import os
@@ -232,6 +238,154 @@ def param_sharding_rules(model: nn.Module, mesh: Mesh, min_size: int = 2 ** 16
                  and p.shape[axis] % tp == 0)
         rules[name] = axis if split else None
     return rules
+
+
+def _gather(part: torch.Tensor, axis: int, group) -> torch.Tensor:
+    """The whole tensor from every model rank's slice of it along ``axis``."""
+    parts = [torch.empty_like(part) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, part.contiguous(), group=group)
+    return torch.cat(parts, dim=axis)
+
+
+class _GatherSlices(torch.autograd.Function):
+    """:func:`_gather`, whose backward hands each rank its own slice of the
+    gradient. Every rank of the model group computes the same step on the
+    same rows, so each already holds the whole, identical gradient; the
+    sum that all_gather's adjoint takes (a reduce-scatter) would count it
+    once for every rank."""
+
+    @staticmethod
+    def forward(ctx, part, axis, group, index):
+        ctx.axis, ctx.start, ctx.size = axis, index * part.shape[axis], part.shape[axis]
+        return _gather(part, axis, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.axis, ctx.start, ctx.size).contiguous(), None, None, None
+
+
+class ModelSplit:
+    """The parameters of a model that :func:`split_parameters` split over
+    the mesh's model axis. Each rank stores, in place of each such
+    parameter, a parameter of the same name holding its slice along the
+    axis :func:`param_sharding_rules` names (rank ``m`` of the model group
+    the ``m``-th of ``model`` equal blocks); the others stay whole.
+
+    Inside :meth:`gathered` the model sees the whole weights, gathered
+    over the model group, and a backward gives each slice its own part of
+    the gradient. ``state_dict()`` of the model, or of a module that holds
+    a split parameter, returns the whole tensors (the unsplit layout the
+    weight bridge and ``cli.export`` read) and is therefore a collective:
+    every rank of the model group calls it. ``load_state_dict`` takes the
+    unsplit layout and keeps this rank's slices."""
+
+    def __init__(self, model: nn.Module, mesh: Mesh, rules: Dict[str, Optional[int]]):
+        self.group = mesh.groups["model"]
+        self.index = mesh.coords["model"]
+        self.parts = mesh.shape["model"]
+        # (module, attribute, axis) of each split parameter, and the axis by
+        # the identity of the parameter that holds the slice
+        self._slots = []
+        self._axis_of: Dict[int, int] = {}
+        by_module: Dict[nn.Module, Dict[str, int]] = {}
+        for name, axis in ((n, a) for n, a in rules.items() if a is not None):
+            owner, _, attr = name.rpartition(".")
+            module = model.get_submodule(owner)
+            whole = module._parameters[attr]
+            part = nn.Parameter(self.local(whole.detach(), axis).clone(),
+                                requires_grad=whole.requires_grad)
+            module._parameters[attr] = part  # same name, same place in the order
+            self._slots.append((module, attr, axis))
+            self._axis_of[id(part)] = axis
+            by_module.setdefault(module, {})[attr] = axis
+        for module, attrs in by_module.items():
+            module.register_state_dict_post_hook(self._whole_state(attrs))
+            module.register_load_state_dict_pre_hook(self._local_state(attrs))
+        self._active = False
+
+    def axis_of(self, p: torch.Tensor) -> Optional[int]:
+        """The axis along which ``p`` is this rank's slice, or None."""
+        return self._axis_of.get(id(p))
+
+    def local(self, whole: torch.Tensor, axis: int) -> torch.Tensor:
+        """This rank's slice of ``whole`` (a view)."""
+        k = whole.shape[axis] // self.parts
+        return whole.narrow(axis, self.index * k, k)
+
+    def whole(self, part: torch.Tensor, axis: int) -> torch.Tensor:
+        """The whole tensor from the model group's slices (no gradient)."""
+        with torch.no_grad():
+            return _gather(part, axis, self.group)
+
+    @contextlib.contextmanager
+    def gathered(self):
+        """The model holds its whole weights for the duration, each split
+        parameter's gathered once (one all_gather each over the model
+        group); the gradient reaches each rank's slice. Nested use
+        gathers nothing more."""
+        if self._active:
+            yield
+            return
+        parts = [module._parameters[attr] for module, attr, _ in self._slots]
+        for (module, attr, axis), part in zip(self._slots, parts):
+            module._parameters[attr] = _GatherSlices.apply(part, axis, self.group, self.index)
+        self._active = True
+        try:
+            yield
+        finally:
+            for (module, attr, _), part in zip(self._slots, parts):
+                module._parameters[attr] = part
+            self._active = False
+
+    def _whole_state(self, attrs: Dict[str, int]):
+        def hook(module, state, prefix, _meta):
+            for attr, axis in attrs.items():
+                x = state.get(prefix + attr)
+                if x is not None and x.shape[axis] != self._whole_size(module, attr, axis):
+                    state[prefix + attr] = self.whole(x, axis)
+        return hook
+
+    def _local_state(self, attrs: Dict[str, int]):
+        def hook(module, state, prefix, *_):
+            for attr, axis in attrs.items():
+                x = state.get(prefix + attr)
+                if x is not None and x.shape[axis] == self._whole_size(module, attr, axis):
+                    state[prefix + attr] = self.local(x, axis)
+        return hook
+
+    def _whole_size(self, module: nn.Module, attr: str, axis: int) -> int:
+        held = module._parameters[attr].shape[axis]
+        return held if self._active else held * self.parts
+
+
+def split_parameters(model: nn.Module, mesh: Mesh) -> Optional[ModelSplit]:
+    """Split ``model``'s parameters over ``mesh``'s model axis by
+    :func:`param_sharding_rules` (JAX's ``device_put`` of the params by
+    those rules), in place; None where the axis has size 1 or the rules
+    split nothing. Every rank must hold the same whole weights before
+    (:func:`replicate`). :func:`model_split` finds the result again;
+    ValueError for a model already split."""
+    if model_split(model) is not None:
+        raise ValueError("the model's parameters are split already")
+    rules = param_sharding_rules(model, mesh)
+    if mesh.shape["model"] == 1 or all(a is None for a in rules.values()):
+        return None
+    split = ModelSplit(model, mesh, rules)
+    model._model_split = split
+    return split
+
+
+def model_split(model: nn.Module) -> Optional[ModelSplit]:
+    """The :class:`ModelSplit` of ``model``, or None where it holds every
+    parameter whole."""
+    return getattr(model, "_model_split", None)
+
+
+def gathered(model: nn.Module):
+    """:meth:`ModelSplit.gathered` of ``model``'s split, a context that
+    does nothing for a model that holds every parameter whole."""
+    split = model_split(model)
+    return contextlib.nullcontext() if split is None else split.gathered()
 
 
 # -- ranks ------------------------------------------------------------------

@@ -12,7 +12,9 @@ generator. Metadata (epoch, best t_rel) go beside it as
 Restoring into a fresh :class:`TrainState` gives bitwise the state that
 was saved. Under data parallelism (``parallel/mesh.py``) the ranks hold
 one state bit for bit: rank 0 writes it, every rank waits for the write
-at a barrier, and every rank restores from the file.
+at a barrier, and every rank restores from the file. A state whose
+parameters are split over the model axis is saved whole (every rank
+takes part in gathering it) and restored into each rank's slices.
 """
 
 from __future__ import annotations
@@ -45,18 +47,20 @@ class CheckpointManager:
         """Write ``state`` under ``directory/name`` (replacing what was
         there), and ``metadata`` as ``name.meta.json``; every rank of a
         process group calls it, rank 0 writes and the others wait."""
+        # on every rank: the state dicts of split parameters are gathered
+        payload = {"model": state.model.state_dict(),
+                   "optimizer": state.optimizer.state_dict(),
+                   "step": state.step,
+                   "generator": state.generator.get_state()}
         if is_rank0():
-            self._write(name, state, metadata)
+            self._write(name, payload, metadata)
         barrier()
 
-    def _write(self, name: str, state: TrainState, metadata: Optional[dict]) -> None:
+    def _write(self, name: str, payload: dict, metadata: Optional[dict]) -> None:
         path = self.path(name)
         path.parent.mkdir(parents=True, exist_ok=True)
         tmp = path.with_suffix(".tmp")
-        torch.save({"model": state.model.state_dict(),
-                    "optimizer": state.optimizer.state_dict(),
-                    "step": state.step,
-                    "generator": state.generator.get_state()}, tmp)
+        torch.save(payload, tmp)
         os.replace(tmp, path)
         if metadata is not None:
             (self.directory / f"{name}.meta.json").write_text(json.dumps(metadata, default=str))

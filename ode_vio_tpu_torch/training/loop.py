@@ -28,7 +28,13 @@ solves summed; every key a step draws is mixed with the rank's data
 coordinate (``models/common.py::RankKeys``), from the one generator every
 rank holds alike. The step is not wrapped in ``DistributedDataParallel``:
 it takes its gradients with ``torch.autograd.grad``, which DDP's reducer
-does not hook. With a mesh of one rank nothing of this runs.
+does not hook. With a mesh of one rank nothing of this runs. A state
+created with ``split_params`` over a model axis of more than one rank
+stores only its slice of each parameter ``param_sharding_rules`` splits
+(``parallel/mesh.py::ModelSplit``): the step gathers the whole weights
+once, each slice takes its own part of the gradient, moments and
+accumulation mean are slices too, and every gradient norm (the clip's
+and ``grad_norm``) sums the slices' squares over the model group.
 
 ``make_train_step(cfg, carry=True)`` is the carried step of the
 carried-state exposure (``TrainConfig.carry_exposure``), and
@@ -51,7 +57,8 @@ from ode_vio_tpu_torch.models.common import Carry, LaneDraws, RankKeys
 from ode_vio_tpu_torch.models.deepvio import DeepVIO, require_ported
 from ode_vio_tpu_torch.models.encoders import ImageEncoder, share_batch_statistics
 from ode_vio_tpu_torch.models.fold import fold_batchnorm, fold_batchnorm_into_bias
-from ode_vio_tpu_torch.parallel.mesh import Mesh, replicate
+from ode_vio_tpu_torch.parallel.mesh import (Mesh, ModelSplit, gathered, model_split, replicate,
+                                             split_parameters)
 
 
 def lr_for_epoch(cfg: Config, epoch: int) -> float:
@@ -77,9 +84,20 @@ def param_group(name: str, freeze_encoder: bool, split_regressor: bool) -> str:
     return "train"
 
 
-def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element of ``tensors``."""
-    return torch.sqrt(sum(torch.sum(g * g) for g in tensors))
+def global_norm(tensors: Iterable[torch.Tensor], axes: Optional[Sequence] = None,
+                group=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every element of ``tensors``. Where
+    ``axes`` marks a tensor (an axis, not None) as this rank's slice of one
+    split over the model ``group``, the slices' square-sums are summed
+    over the group, so that the norm is the whole tensors' and every
+    tensor counts once."""
+    tensors = list(tensors)
+    if axes is None or all(a is None for a in axes):
+        return torch.sqrt(sum(torch.sum(g * g) for g in tensors))
+    parts = torch.stack([torch.sum(g * g) for g, a in zip(tensors, axes) if a is not None]).sum()
+    torch.distributed.all_reduce(parts, group=group)
+    return torch.sqrt(sum((torch.sum(g * g) for g, a in zip(tensors, axes) if a is None),
+                          parts))
 
 
 class Optimizer:
@@ -88,7 +106,11 @@ class Optimizer:
     b2 0.999, eps 1e-8) or SGD (momentum 0.9) over named param groups, with
     ``weight_decay`` added to the gradients; :meth:`step` clips each
     group's gradients by that group's global norm first, and averages them
-    over ``grad_accumulation_steps`` calls before one update."""
+    over ``grad_accumulation_steps`` calls before one update. Over a model
+    whose parameters are split (``parallel/mesh.py::model_split``) its
+    state holds slices, the norms are the whole gradients', and
+    :meth:`state_dict` gathers the whole tensors (a collective over the
+    model group)."""
 
     def __init__(self, model: torch.nn.Module, cfg: Config):
         t = cfg.train
@@ -107,6 +129,10 @@ class Optimizer:
                                           eps=1e-8, weight_decay=t.weight_decay)
         self.params: List[torch.nn.Parameter] = [p for g in self.inner.param_groups
                                                  for p in g["params"]]
+        self.split: Optional[ModelSplit] = model_split(model)
+        # the axis of each parameter that is this rank's slice, else None
+        self.axes = [None if self.split is None else self.split.axis_of(p)
+                     for p in self.params]
         self.max_norm = t.gradient_clip
         self.every = t.grad_accumulation_steps
         self.mini_step = 0
@@ -130,8 +156,8 @@ class Optimizer:
         for group in self.inner.param_groups:
             ps = group["params"]
             gs = grads[i:i + len(ps)]
+            norm = self.norm(gs, self.axes[i:i + len(ps)])
             i += len(ps)
-            norm = global_norm(gs)
             within = norm < self.max_norm  # optax: clip only at or above the limit
             for p, g in zip(ps, gs):
                 p.grad = torch.where(within, g, g / norm * self.max_norm)
@@ -139,18 +165,41 @@ class Optimizer:
         for p in self.params:
             p.grad = None
 
+    def norm(self, grads: Sequence[torch.Tensor], axes: Optional[Sequence] = None
+             ) -> torch.Tensor:
+        """The global norm of ``grads`` (of :attr:`params`, or of the
+        parameters ``axes`` belongs to), whole where they are slices."""
+        return global_norm(grads, self.axes if axes is None else axes,
+                           None if self.split is None else self.split.group)
+
+    def _resized(self, inner: dict, mean, resize) -> tuple:
+        """The inner state and the mean with ``resize(t, axis)`` applied to
+        every per-element tensor (not a step count) of a split parameter."""
+        def one(t, axis):
+            return t if axis is None or not torch.is_tensor(t) or t.dim() == 0 else resize(t, axis)
+
+        state = {i: {k: one(v, self.axes[i]) for k, v in st.items()}
+                 for i, st in inner["state"].items()}
+        return (dict(inner, state=state),
+                None if mean is None else [one(m, a) for m, a in zip(mean, self.axes)])
+
     def state_dict(self) -> dict:
         """What a resumed run needs: the inner optimizer's state (moments,
         step counts, groups), the accumulation position and its running
-        mean."""
-        return {"inner": self.inner.state_dict(), "mini_step": self.mini_step,
-                "mean": self._mean}
+        mean; the whole tensors where the parameters are split."""
+        inner, mean = self.inner.state_dict(), self._mean
+        if self.split is not None:
+            inner, mean = self._resized(inner, mean, self.split.whole)
+        return {"inner": inner, "mini_step": self.mini_step, "mean": mean}
 
     def load_state_dict(self, sd: dict) -> None:
-        self.inner.load_state_dict(sd["inner"])
+        inner, mean = sd["inner"], sd["mean"]
+        if self.split is not None:
+            inner, mean = self._resized(inner, mean,
+                                        lambda t, axis: self.split.local(t, axis).clone())
+        self.inner.load_state_dict(inner)
         self.mini_step = sd["mini_step"]
-        self._mean = None if sd["mean"] is None else [
-            m.to(p.device) for m, p in zip(sd["mean"], self.params)]
+        self._mean = None if mean is None else [m.to(p.device) for m, p in zip(mean, self.params)]
 
 
 def set_learning_rate(optimizer: Optimizer, lr: float, group: str = "train") -> Optimizer:
@@ -176,11 +225,16 @@ class TrainState:
 
 
 def create_train_state(cfg: Config, model: DeepVIO, *, seed: Optional[int] = None,
-                       device="cuda", mesh: Optional[Mesh] = None) -> TrainState:
+                       device="cuda", mesh: Optional[Mesh] = None,
+                       split_params: bool = False) -> TrainState:
     """Move ``model`` to ``device`` in train mode and build its optimizer
     and a generator seeded with ``seed`` (default ``cfg.train.seed``).
     Under a ``mesh`` of several ranks its BatchNorms take the global
-    batch's statistics and the state is rank 0's (broadcast)."""
+    batch's statistics and the state is rank 0's (broadcast); with
+    ``split_params`` each rank then keeps only its slice, over the model
+    axis, of the parameters ``param_sharding_rules`` splits
+    (``parallel/mesh.py::split_parameters``), and the optimizer is built
+    over the slices."""
     device = resolve_device(device)
     model = model.to(device).train()
     gen = torch.Generator().manual_seed(cfg.train.seed if seed is None else seed)
@@ -188,6 +242,8 @@ def create_train_state(cfg: Config, model: DeepVIO, *, seed: Optional[int] = Non
     if mesh is not None and mesh.size > 1:
         share_batch_statistics(model, mesh.groups["data"])
         replicate(state, mesh)
+        if split_params and split_parameters(model, mesh) is not None:
+            state.optimizer = Optimizer(model, cfg)
     return state
 
 
@@ -250,7 +306,7 @@ def _step_parts(cfg: Config, device: torch.device, mesh: Optional[Mesh] = None):
         metrics = (loss.detach(), angle.detach(), trans.detach())
         if group is not None:
             grads, metrics, incomplete = _global_mean(grads, metrics, incomplete, group)
-        grad_norm = global_norm(grads)
+        grad_norm = state.optimizer.norm(grads)
         state.optimizer.step(grads)
         state.step += 1
         return {"loss": metrics[0], "angle_loss": metrics[1], "trans_loss": metrics[2],
@@ -326,18 +382,19 @@ def make_train_step(cfg: Config, carry: bool = False, *, device="cuda",
     def train_step(state: TrainState, img, imu, gts, ts) -> Tuple[TrainState, Dict]:
         model, gen = state.model, keys(state)
         img, imu, gts, ts = inputs(img, imu, gts, ts)
-        fv = features(model, img, gen)
-        if k is None:
-            poses, _, stats = model.pose_from_visual(fv, imu, ts, generator=gen)
-            incomplete = stats.incomplete.sum()
-        else:
-            p1, hc, st1 = model.pose_from_visual(fv[:, :k], imu[:, :10 * k + 1], ts[:, :k + 1],
-                                                 generator=gen)
-            p2, _, st2 = model.pose_from_visual(fv[:, k:], imu[:, 10 * k:], ts[:, k:],
-                                                detach_carry(hc), generator=gen)
-            poses = torch.cat([p1, p2], dim=1)
-            incomplete = st1.incomplete.sum() + st2.incomplete.sum()
-        return state, update(state, poses, gts, incomplete)
+        with gathered(model):
+            fv = features(model, img, gen)
+            if k is None:
+                poses, _, stats = model.pose_from_visual(fv, imu, ts, generator=gen)
+                incomplete = stats.incomplete.sum()
+            else:
+                p1, hc, st1 = model.pose_from_visual(fv[:, :k], imu[:, :10 * k + 1],
+                                                     ts[:, :k + 1], generator=gen)
+                p2, _, st2 = model.pose_from_visual(fv[:, k:], imu[:, 10 * k:], ts[:, k:],
+                                                    detach_carry(hc), generator=gen)
+                poses = torch.cat([p1, p2], dim=1)
+                incomplete = st1.incomplete.sum() + st2.incomplete.sum()
+            return state, update(state, poses, gts, incomplete)
 
     return train_step
 
@@ -361,9 +418,10 @@ def make_streaming_train_step(cfg: Config, *, device="cuda",
     def step(state: TrainState, img, imu, gts, ts, hc: Optional[Carry] = None):
         model, gen = state.model, keys(state)
         img, imu, gts, ts = inputs(img, imu, gts, ts)
-        fv = features(model, img, gen)
-        poses, h_T, stats = model.pose_from_visual(fv, imu, ts, hc, generator=gen)
-        metrics = update(state, poses, gts, stats.incomplete.sum())
+        with gathered(model):
+            fv = features(model, img, gen)
+            poses, h_T, stats = model.pose_from_visual(fv, imu, ts, hc, generator=gen)
+            metrics = update(state, poses, gts, stats.incomplete.sum())
         return state, metrics, detach_carry(h_T)
 
     return step

@@ -285,38 +285,64 @@ CORE_CASES = [("cde", "carry", "linear"), ("cde", "carry", "cubic"), ("cde", "re
               ("rde", "history", "linear")]
 
 
+@pytest.fixture(scope="module")
+def core_references(cde_model, rde_model):
+    """The JAX pose core's windows for each CORE_CASES case, computed once
+    for the case's two runs (solver core and K2's wrapper): a function of
+    the case returning, per window, (poses, carry leaves, incomplete)."""
+    cache = {}
+
+    def reference(model_type, mode, interpolation):
+        case = (model_type, mode, interpolation)
+        if case not in cache:
+            key = "cde_streaming_mode" if model_type == "cde" else "rde_streaming_mode"
+            jc, _ = core_configs(model_type, cde_interpolation=interpolation, **{key: mode})
+            v = (cde_model if model_type == "cde" else rde_model)[1]
+            jcore = (JaxPoseCDE if model_type == "cde" else JaxPoseRDE)(jc.model,
+                                                                         jc.cde_solver_cfg)
+            jcarry, out = None, []
+            for fv, fi, ts in pose_windows(12, scale=0.3):
+                (ref_pose, jcarry), inter = jcore.apply(
+                    {"params": v["params"]["pose_net"]}, jnp.asarray(fv), jnp.asarray(fi),
+                    jnp.asarray(ts), prev=jcarry, mutable=["intermediates"])
+                out.append((np.asarray(ref_pose), leaves(jcarry), np.asarray(
+                    inter["intermediates"][f"{model_type}_solves_incomplete"][0])))
+            cache[case] = out
+        return cache[case]
+
+    return reference
+
+
 @pytest.mark.parametrize("use_kernels", [False, True])
 @pytest.mark.parametrize("model_type,mode,interpolation", CORE_CASES)
 def test_pose_core_over_carried_windows(model_type, mode, interpolation, use_kernels, cde_model,
-                                        rde_model):
+                                        rde_model, core_references):
     """Through the solver core and through K2's wrapper (its plain version
     on CPU tensors); per-lane incomplete counts and the carry's leaves
     (history mode: z0, the ring buffer, the count) checked too. Features at
     0.3 of unit scale: at unit scale the tiny field's flow expands enough
-    that for some seeds rounding alone moves window 0 by ~1e-3."""
+    that for some seeds rounding alone moves window 0 by ~1e-3. The JAX
+    core runs once for both (``core_references``)."""
     key = "cde_streaming_mode" if model_type == "cde" else "rde_streaming_mode"
-    jc, tc = core_configs(model_type, cde_interpolation=interpolation, **{key: mode})
+    _, tc = core_configs(model_type, cde_interpolation=interpolation, **{key: mode})
     tc = dataclasses.replace(tc, model=dataclasses.replace(tc.model, use_kernels=use_kernels))
     v = (cde_model if model_type == "cde" else rde_model)[1]
-    jcore = (JaxPoseCDE if model_type == "cde" else JaxPoseRDE)(jc.model, jc.cde_solver_cfg)
     model = DeepVIO(tc.model, tc.solver, tc.cde_solver_cfg).eval()
     model.load_state_dict(from_jax_variables(v, tc.model), strict=True)
-    jcarry = carry = None
-    for w, (fv, fi, ts) in enumerate(pose_windows(12, scale=0.3)):
-        (ref_pose, jcarry), inter = jcore.apply(
-            {"params": v["params"]["pose_net"]}, jnp.asarray(fv), jnp.asarray(fi),
-            jnp.asarray(ts), prev=jcarry, mutable=["intermediates"])
-        ref_inc = inter["intermediates"][f"{model_type}_solves_incomplete"][0]
+    carry = None
+    refs = core_references(model_type, mode, interpolation)
+    for w, ((fv, fi, ts), (ref_pose, ref, ref_inc)) in enumerate(
+            zip(pose_windows(12, scale=0.3), refs)):
         with torch.no_grad():
             pose, carry, stats = model.Pose_net(t(fv), t(fi), t(ts), prev=carry)
         rt, at = (2e-4, 2e-5) if w == 0 else (3e-2, 5e-3)
-        np.testing.assert_allclose(pose.numpy(), np.asarray(ref_pose), rtol=rt, atol=at,
+        np.testing.assert_allclose(pose.numpy(), ref_pose, rtol=rt, atol=at,
                                    err_msg=f"window {w}")
-        got, ref = leaves(carry), leaves(jcarry)
+        got = leaves(carry)
         assert [a.shape for a in got] == [b.shape for b in ref]
         for a, b in zip(got, ref):
             np.testing.assert_allclose(a, b, rtol=rt, atol=at, err_msg=f"carry, window {w}")
-        np.testing.assert_array_equal(stats.incomplete.numpy(), np.asarray(ref_inc))
+        np.testing.assert_array_equal(stats.incomplete.numpy(), ref_inc)
 
 
 @pytest.mark.parametrize("model_type", ["cde", "rde"])

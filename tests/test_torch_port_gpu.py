@@ -10,7 +10,10 @@ from the repository's root with
 K2's cases are chip_smoke.py's CDE_CASES, checked by its check_cde_case;
 K3's are its DROPOUT_CASES, checked by check_dropout_case. The mesh's
 cases (two ranks, and two eval and serving replicas, sharing the one
-card) call its train_mesh, serve_mesh and eval_lanes at tiny widths."""
+card) call its train_mesh, serve_mesh and eval_lanes at tiny widths. The
+top-level entry points (ode_vio_tpu_torch/entry.py): the entry forward at
+tiny widths through K1, and dryrun_multichip(4) with its four ranks
+sharing the card, the weights split over the model axis."""
 
 import dataclasses
 
@@ -687,3 +690,53 @@ def test_cde_eval_lanes_split_on_gpu(tmp_path, no_tf32):
     split = chip_smoke.eval_lanes(model, root, cfg, dev, [dev, dev], ("05",), k2_per_step=1)
     assert split["k2"] == sum(a["k2"] for a in alone) > 0
     assert chip_smoke.lane_gap([p for a in alone for p in a["poses"]], split["poses"]) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_entry_forward_launches_k1_on_gpu(no_tf32):
+    """entry.build_forward at tiny widths (seq_len 11, float32) on the card:
+    K1 once a frame interval of the window (10), finite poses within 1e-3
+    of the same weights through the solver core (use_kernels=False)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ode_vio_tpu_torch.config import Config, ModelConfig
+    from ode_vio_tpu_torch.entry import build_forward
+
+    cfg = Config(model=ModelConfig(**dict(TINY_TRAIN, seq_len=11)))
+    fn, args = build_forward(cfg, device="cuda")
+    before = cuda_kernels.fused_ode_solve.launches
+    poses = fn(*args)
+    assert cuda_kernels.fused_ode_solve.launches - before == 10
+    core = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, use_kernels=False))
+    ref_fn, _ = build_forward(core, device="cuda")
+    ref_fn.model.load_state_dict(fn.model.state_dict())
+    ref = ref_fn(*args)
+    assert poses.shape == (1, 10, 6) and torch.isfinite(poses).all()
+    assert float((poses - ref).abs().max()) <= 1e-3
+
+
+@pytest.mark.gpu
+def test_dryrun_multichip_splits_on_gpu(capsys):
+    """dryrun_multichip(4) with its four ranks on cuda:0 over gloo: a
+    (2, 2) mesh, JAX's ok line, every rank the same finite losses, K3 18 a
+    step on each rank, and each rank storing half of every split weight
+    (its parameters the unsplit model's less half of the split ones)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ode_vio_tpu_torch.entry import dryrun_config, dryrun_multichip
+    from ode_vio_tpu_torch.models.deepvio import DeepVIO
+
+    ranks = dryrun_multichip(4, "cuda")
+    assert capsys.readouterr().out.splitlines()[-1].startswith(
+        "dryrun_multichip ok: mesh={'data': 2, 'model': 2} loss=")
+    cfg, _ = dryrun_config(4)
+    with torch.device("meta"):
+        whole = sum(p.numel() * p.element_size() for p in DeepVIO(cfg.model).parameters())
+    for r in ranks:
+        assert r["metrics"] == ranks[0]["metrics"]
+        assert all(np.isfinite(m["loss"]) for m in r["metrics"])
+        assert r["launches"]["fused_dropout"] == 2 * 18
+        b = r["stored_bytes"]
+        assert b["params_split"] > 0 and b["params"] + b["params_split"] == whole
+        assert {n: s for n, s in r["shapes"].items() if s != ranks[0]["shapes"][n]} == {}
+    assert ranks[0]["shapes"]["Image_net.visual_head.weight"] == (64, 2048)

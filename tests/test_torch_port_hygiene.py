@@ -106,6 +106,23 @@ def test_entry_points_default_to_cuda_and_do_not_fall_back():
         create_train_state(cfg, model)
 
 
+def test_entry_py_and_experiments_default_to_cuda(tmp_path):
+    """entry(), dryrun_multichip, the learning checks and the irregularity
+    experiment raise without a card unless asked for the CPU; none starts
+    a rank or writes a tree first."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid here")
+    from ode_vio_tpu_torch.entry import dryrun_multichip, entry
+    from ode_vio_tpu_torch.experiments import convergence, irregularity
+
+    for call in (entry, lambda: dryrun_multichip(4),
+                 lambda: convergence.learn("plain", tmp_path),
+                 lambda: irregularity.main(["--tree", str(tmp_path / "tree")])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert not (tmp_path / "tree").exists()
+
+
 def test_kernel_wrapper_raises_off_cuda_and_cpu():
     from ode_vio_tpu_torch.ops.cuda_kernels import fused_ode_solve
 

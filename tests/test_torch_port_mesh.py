@@ -12,7 +12,8 @@ version). Held against:
 
   * the JAX package's step sharded over a 2-device CPU mesh
     (``create_mesh(2, 1, devices=jax.devices()[:2])``, as
-    tests/test_train.py holds it against its one-device step), from the
+    tests/test_train.py holds it against its one-device step; accum2's
+    over the (2, 2) mesh of the split case below), from the
     same weights through the bridge: each step's loss at rtol 1e-5 (the
     other metrics at 1e-4, as the one-process parity holds them), the
     parameters and statistics by ``compare_state``'s rule (rtol 1e-4,
@@ -22,6 +23,16 @@ version). Held against:
     the same rule;
   * each other: the ranks' whole states (model, optimizer, step,
     generator) bit for bit after the steps.
+
+A world of four ranks on a ``(2, 2)`` mesh runs the ``accum2`` case
+with the parameters ``param_sharding_rules`` splits stored as slices
+over the model axis (``create_train_state(split_params=True)``), held
+against the JAX step sharded over a ``(2, 2)`` mesh with those rules
+applied (as the ``accum2`` case), against the port's one-process step
+(every metric at rtol 1e-5, the tensors as above), each rank's stored
+shapes against the rules' slices, its gathered ``state_dict()`` through
+the weight bridge both ways and its checkpoint, bit for bit;
+``dryrun_multichip(4, "cpu")`` itself is a slow test.
 
 The ranks' global BatchNorm statistics are held against one process's at
 rtol 1e-5 (features) and 1e-6 (running statistics); eval lanes and the
@@ -48,6 +59,7 @@ import torch
 
 import torch_mesh_workers as workers
 from ode_vio_tpu import config as jcfg
+from ode_vio_tpu.models.convert import convert_deepvio, trunk_out_hw
 from ode_vio_tpu.models.deepvio import create_model as jax_create_model
 from ode_vio_tpu.models.deepvio import init_model
 from ode_vio_tpu.parallel import mesh as jmesh
@@ -56,6 +68,7 @@ from ode_vio_tpu_torch import config as tcfg
 from ode_vio_tpu_torch.cli.train import main as train_main
 from ode_vio_tpu_torch.data.evaluation import KittiEvaluator, eval_runs
 from ode_vio_tpu_torch.data.synthetic import make_kitti_tree
+from ode_vio_tpu_torch.entry import dryrun_config, dryrun_multichip
 from ode_vio_tpu_torch.models.common import RankKeys, draw_key, mix_key
 from ode_vio_tpu_torch.models.convert import from_jax_variables
 from ode_vio_tpu_torch.models.deepvio import DeepVIO, create_model
@@ -84,6 +97,8 @@ CASES = {
     "keys": ("fresh", dict(freeze_encoder=True), (2, 1), None),
 }
 JAX_CASES = ("fresh", "accum2", "carry", "stream")
+# the accum2 case on a (2, 2) mesh with split parameters, in a world of its own
+SPLIT_MESH = (2, 2)
 
 
 def configs(**train):
@@ -149,11 +164,32 @@ def world(one_torch_thread, state_dict):  # noqa: F811
 
 
 @pytest.fixture(scope="module")
+def split_ckpt(tmp_path_factory):
+    """Where the split world's ranks save their checkpoint."""
+    return tmp_path_factory.mktemp("split_ckpt")
+
+
+@pytest.fixture(scope="module")
+def split_world(one_torch_thread, state_dict, split_ckpt):  # noqa: F811
+    """Every rank's results of torch_mesh_workers.rank_split: the accum2
+    case on SPLIT_MESH, its checkpoint under ``split_ckpt``."""
+    case = dict(case_spec("accum2"), mesh=SPLIT_MESH)
+    return tmesh.launch(workers.rank_split, ["cpu"] * 4, state_dict, case, split_ckpt)
+
+
+def ranks_of(name, request):
+    """The world that ran case ``name`` ("split": the accum2 case over
+    SPLIT_MESH with split parameters)."""
+    return request.getfixturevalue("split_world" if name == "split" else "world")
+
+
+@pytest.fixture(scope="module")
 def one_process(state_dict):
     """Each case as one process at the global batch: metrics, the trained
-    tensors and each step's gradients."""
+    tensors and each step's gradients (not the keys case's: its ranks are
+    held against each other, and the one process draws other masks)."""
     out = {}
-    for name in CASES:
+    for name in (n for n in CASES if n != "keys"):
         case = case_spec(name)
         state = workers.port_state(case, state_dict, "cpu")
         grads = workers.record_grads(state)
@@ -162,17 +198,43 @@ def one_process(state_dict):
     return out
 
 
+@pytest.fixture(scope="module")
+def jax_references(variables):
+    """``reference(name)``: jax_reference of case ``name``, computed once
+    for the accum2 case and the split case, which share it."""
+    cache = {}
+
+    def reference(name):
+        key = "accum2" if name == "split" else name
+        if key not in cache:
+            cache[key] = jax_reference(key, variables)
+        return cache[key]
+
+    return reference
+
+
 def jax_reference(name, variables):
-    """The JAX package's steps of case ``name`` on a 2-device data mesh."""
+    """The JAX package's steps of case ``name`` on a 2-device data mesh;
+    the accum2 case's (which the split case shares) on a SPLIT_MESH of 4
+    devices, the params put by ``param_sharding_rules`` as JAX's dryrun
+    puts them (XLA partitions the same accumulation cycle, so the
+    two-rank world is held against it as against a 2-device mesh)."""
+    shape = SPLIT_MESH if name == "accum2" else (2, 1)
     kind, train, _, _ = CASES[name]
     jc, _ = configs(**train)
-    mesh = jmesh.create_mesh(2, 1, devices=jax.devices()[:2])
+    mesh = jmesh.create_mesh(*shape, devices=jax.devices()[:shape[0] * shape[1]])
     tx = jloop.make_optimizer(jc)
     state = jloop.create_train_state(jc, jax.tree_util.tree_map(jnp.asarray, variables), tx,
                                      jax.random.PRNGKey(1))
     # replicated over the mesh as cli.train puts it: the steps then share
     # one compile
     state = jax.device_put(state, jmesh.replicated(mesh))
+    if shape[1] > 1:
+        state = state.replace(params=jax.tree_util.tree_map(
+            jax.device_put, state.params, jmesh.param_sharding_rules(state.params, mesh)))
+    # each step's state goes back onto these shardings (the split params come
+    # out of a step laid out otherwise), so the steps share one compile
+    shardings = jax.tree_util.tree_map(lambda x: x.sharding, state)
     model = jax_create_model(jc)
     if kind == "stream":
         step = jloop.make_streaming_train_step(model, tx, jc)
@@ -185,6 +247,7 @@ def jax_reference(name, variables):
             state, m, hc = step(state, *sharded) if hc is None else step(state, *sharded, hc)
         else:
             state, m = step(state, *sharded)
+        state = jax.device_put(state, shardings)
         metrics.append(as_np(m))
     return metrics, as_np(state.params), as_np(state.batch_stats)
 
@@ -222,34 +285,50 @@ def close_where_clear(got, want, grads, rtol, bn_updates=1):
     assert compared > 0.95 * total  # the mask must not hollow out the comparison
 
 
-@pytest.mark.parametrize("name", JAX_CASES)
-def test_two_rank_step_matches_jax_sharded_step(world, variables, name):
-    """The ranks' steps against JAX's step over a 2-device data mesh."""
-    ref_metrics, params, stats = jax_reference(name, variables)
-    _, tc = configs(**CASES[name][1])
-    for got, ref in zip(world[0][name]["metrics"], ref_metrics):
+def rank0(name, request) -> dict:
+    """Rank 0's results of case ``name``."""
+    ranks = ranks_of(name, request)
+    return ranks[0] if name == "split" else ranks[0][name]
+
+
+@pytest.mark.parametrize("name", JAX_CASES + ("split",))
+def test_two_rank_step_matches_jax_sharded_step(request, jax_references, name):
+    """The ranks' steps against JAX's sharded step (accum2: JAX's (2, 2)
+    mesh with its params split by the rules; "split": the four ranks with
+    split parameters, their gathered tensors, against the same)."""
+    ref_metrics, params, stats = jax_references(name)
+    got_case = rank0(name, request)
+    _, tc = configs(**CASES["accum2" if name == "split" else name][1])
+    for got, ref in zip(got_case["metrics"], ref_metrics):
         np.testing.assert_allclose(got["loss"], float(ref["loss"]), rtol=1e-5)
         for k in ("angle_loss", "trans_loss", "grad_norm"):
             np.testing.assert_allclose(got[k], float(ref[k]), rtol=1e-4, err_msg=k)
         assert got["solver_incomplete"] == int(ref["solver_incomplete"])
     want = from_jax_variables({"params": params, "batch_stats": stats}, tc.model)
-    close_where_clear(world[0][name]["state"], want,
-                      applied(world[0][name]["grads"], tc.train.grad_accumulation_steps),
+    # the split ranks' gradients are slices: the mask takes the one process's
+    grads = request.getfixturevalue("one_process")["accum2"]["grads"] if name == "split" \
+        else got_case["grads"]
+    close_where_clear(got_case["state"], want,
+                      applied(grads, tc.train.grad_accumulation_steps),
                       rtol=1e-4, bn_updates=2 if name == "carry" else 1)
 
 
-@pytest.mark.parametrize("name", ["fresh", "accum2", "carry", "stream", "trunk"])
-def test_two_rank_step_matches_one_process(world, one_process, name):
+@pytest.mark.parametrize("name", ["fresh", "accum2", "carry", "stream", "trunk", "split"])
+def test_two_rank_step_matches_one_process(request, one_process, name):
     """The ranks' steps against the port's one-process step over the
     global batch: the trunk case holds the image trunk's BatchNorm (train
-    mode, forward and backward) over the global batch."""
-    ref = one_process[name]
-    for got, want in zip(world[0][name]["metrics"], ref["metrics"]):
+    mode, forward and backward) over the global batch; "split" the four
+    ranks with split parameters (their gathered tensors) against accum2's
+    one process."""
+    ref = one_process["accum2" if name == "split" else name]
+    got_case = rank0(name, request)
+    for got, want in zip(got_case["metrics"], ref["metrics"]):
         for k in ("loss", "angle_loss", "trans_loss", "grad_norm"):
             np.testing.assert_allclose(got[k], want[k], rtol=1e-5, err_msg=k)
         assert got["solver_incomplete"] == want["solver_incomplete"]
-    every = configs(**CASES[name][1])[1].train.grad_accumulation_steps
-    close_where_clear(world[0][name]["state"], ref["state"], applied(ref["grads"], every),
+    every = configs(**CASES["accum2" if name == "split" else name][1])[1] \
+        .train.grad_accumulation_steps
+    close_where_clear(got_case["state"], ref["state"], applied(ref["grads"], every),
                       rtol=1e-5, bn_updates=2 if name == "carry" else 1)
 
 
@@ -268,6 +347,123 @@ def test_model_axis_ranks_take_the_same_rows(world, one_process):
     assert world[0]["model2"]["metrics"] == one_process["model2"]["metrics"]
     for k, x in one_process["model2"]["state"].items():
         np.testing.assert_array_equal(world[0]["model2"]["state"][k], x, err_msg=k)
+
+
+def split_rules():
+    """param_sharding_rules over SPLIT_MESH for the tiny model (meta)."""
+    with torch.device("meta"):
+        model = DeepVIO(configs()[1].model)
+    mesh = tmesh.Mesh(dict(zip(("data", "model"), SPLIT_MESH)), {"data": 0, "model": 0},
+                      {"data": None, "model": None})
+    return model, tmesh.param_sharding_rules(model, mesh)
+
+
+def test_split_ranks_store_their_slices(split_world):
+    """Each of the four ranks stores exactly the slices the rules name:
+    a parameter split along its axis into halves, rank (d, m) holding the
+    m-th (the gathered tensor's), with Adam moments of the same shape; the
+    rest whole. The ranks of one data coordinate hold the same state as a
+    checkpoint holds it (gathered), and so do those of the other."""
+    model, rules = split_rules()
+    split = {n: a for n, a in rules.items() if a is not None}
+    assert {"Inertial_net.proj.weight", "Image_net.visual_head.weight"} <= set(split)
+    whole = split_world[0]["state_dict"]
+    for r in split_world:
+        m = r["coords"]["model"]
+        for name, p in model.named_parameters():
+            want = list(p.shape)
+            if name in split:
+                want[split[name]] //= SPLIT_MESH[1]
+            assert r["shapes"][name] == tuple(want), name
+        for name, axis in r["axes"].items():
+            assert axis == split.get(name), name
+            assert all(s == () or s == r["shapes"][name]
+                       for s in r["moment_shapes"][name].values()), name
+        assert r["slices"].keys() == {n for n, a in r["axes"].items() if a is not None} != set()
+        for name, x in r["slices"].items():
+            k = x.shape[split[name]]
+            np.testing.assert_array_equal(
+                x, np.take(whole[name], np.arange(m * k, (m + 1) * k), axis=split[name]),
+                err_msg=name)
+    assert len({r["digest"] for r in split_world}) == 1
+
+
+def test_split_state_dict_round_trips_through_the_bridge(split_world, split_ckpt, state_dict):
+    """The gathered state_dict() of the split model has the unsplit layout
+    (the keys, order and shapes of the one-process model's): JAX's
+    convert_deepvio reads it and the port's from_jax_variables gives it
+    back bit for bit; its gathered Adam moments have the parameters'
+    whole shapes. The checkpoint the four ranks saved holds that
+    state_dict and those moments, and restored into fresh split states it
+    gives every rank the state it saved (its digest as a checkpoint holds
+    it)."""
+    sd = split_world[0]["state_dict"]
+    saved = CheckpointManager(split_ckpt).restore_raw("split")
+    assert list(saved["model"]) == list(sd)
+    for k, x in saved["model"].items():
+        np.testing.assert_array_equal(x.numpy(), sd[k], err_msg=k)
+    for i, st in enumerate(split_world[0]["moments"]):
+        for k, v in st.items():
+            np.testing.assert_array_equal(saved["optimizer"]["inner"]["state"][i][k].numpy(), v)
+    assert all(r["restored_digest"] == r["digest"] for r in split_world)
+    assert list(sd) == list(state_dict)
+    assert all(sd[k].shape == tuple(state_dict[k].shape) for k in sd)
+    mc = tcfg.ModelConfig(**TINY)
+    back = from_jax_variables(convert_deepvio(
+        {k: v for k, v in sd.items() if not k.endswith("num_batches_tracked")}, mc.model_type,
+        rnn_num_layers=mc.rnn_num_layers, conv_out_hw=trunk_out_hw(mc.img_h, mc.img_w)), mc)
+    assert back.keys() == sd.keys()
+    for k, x in back.items():
+        np.testing.assert_array_equal(x.numpy(), sd[k], err_msg=k)
+    DeepVIO(mc).load_state_dict({k: torch.as_tensor(v) for k, v in sd.items()}, strict=True)
+    names = [n for n in split_world[0]["axes"]]
+    for name, st in zip(names, split_world[0]["moments"]):
+        for k, v in st.items():
+            assert v.shape in ((), sd[name].shape), (name, k)
+
+
+def test_split_clip_norm_counts_each_parameter_once(split_world, one_process):
+    """The split step's gradient norm (the clip's and grad_norm, one
+    function) sums the slices' squares over the model group and counts
+    each replicated gradient once: it equals the one process's at rtol
+    1e-5, where counting the replicated gradients on both model ranks
+    would move it by more than 1 %."""
+    for step, (got, want) in enumerate(zip(split_world[0]["metrics"],
+                                            one_process["accum2"]["metrics"])):
+        np.testing.assert_allclose(got["grad_norm"], want["grad_norm"], rtol=1e-5)
+        grads = one_process["accum2"]["grads"][step]
+        axes = split_world[0]["axes"]
+        rep = sum(float(np.sum(g.astype(np.float64) ** 2)) for n, g in grads.items()
+                  if axes[n] is None)
+        part = sum(float(np.sum(g.astype(np.float64) ** 2)) for n, g in grads.items()
+                   if axes[n] is not None)
+        assert part > 0 and abs(np.sqrt(SPLIT_MESH[1] * rep + part) / want["grad_norm"] - 1) > 1e-2
+
+
+@pytest.mark.slow
+def test_dryrun_multichip_on_four_cpu_ranks(capsys):
+    """dryrun_multichip(4, "cpu"): JAX's dryrun configuration (trunk
+    dropout through K3's plain version, the image encoder trained) on four
+    gloo ranks of a (2, 2) mesh: every rank the same finite losses, each
+    rank's stored parameter and optimizer bytes those of an unsplit rank
+    less half of the split ones, and JAX's line after the bytes line."""
+    runs = dryrun_multichip(4, "cpu")
+    assert [r["coords"] for r in runs] == [{"data": d, "model": m} for d in (0, 1) for m in (0, 1)]
+    assert all(r["metrics"] == runs[0]["metrics"] for r in runs)
+    assert all(np.isfinite(m["loss"]) for m in runs[0]["metrics"])
+    with torch.device("meta"):
+        whole = sum(p.numel() * p.element_size()
+                    for p in DeepVIO(dryrun_config(4)[0].model).parameters())
+    for r in runs:
+        b = r["stored_bytes"]
+        assert b["params_split"] > 0 and b["optimizer_split"] > 0
+        assert b["params"] + b["params_split"] == b["params_unsplit"] == whole
+        assert b["optimizer"] + b["optimizer_split"] == b["optimizer_unsplit"]
+    assert runs[0]["state"]["Image_net.visual_head.weight"].shape == (128, 2048)
+    out = capsys.readouterr().out.splitlines()
+    loss = runs[0]["metrics"][-1]["loss"]
+    assert out[-1] == f"dryrun_multichip ok: mesh={{'data': 2, 'model': 2}} loss={loss:.4f}"
+    assert '"dryrun_multichip_stored_bytes"' in out[-2]
 
 
 def test_rank_keys_differ_from_one_generator(world):

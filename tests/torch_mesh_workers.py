@@ -20,19 +20,22 @@ from ode_vio_tpu_torch.models.deepvio import DeepVIO
 from ode_vio_tpu_torch.models.encoders import ImageEncoder, share_batch_statistics
 from ode_vio_tpu_torch.parallel.mesh import create_mesh, shard_batch
 from ode_vio_tpu_torch.training import loop as tloop
+from ode_vio_tpu_torch.training.checkpoint import CheckpointManager
 
 METRICS = ("loss", "angle_loss", "trans_loss", "grad_norm", "solver_incomplete")
 
 
-def port_state(case: dict, sd: dict, device, mesh=None):
+def port_state(case: dict, sd: dict, device, mesh=None, split_params=False):
     """The case's model from the state dict ``sd`` (the image trunk of
-    ``case["trunk"]`` where given) as a train state on ``device``."""
+    ``case["trunk"]`` where given) as a train state on ``device``, its
+    parameters split over the mesh's model axis with ``split_params``."""
     cfg = case["cfg"]
     model = DeepVIO(cfg.model, cfg.solver, cfg.cde_solver_cfg)
     if case.get("trunk") is not None:
         model.Image_net = ImageEncoder(cfg.model, case["trunk"])
     model.load_state_dict(sd, strict=True)
-    return tloop.create_train_state(cfg, model, device=device, mesh=mesh)
+    return tloop.create_train_state(cfg, model, device=device, mesh=mesh,
+                                    split_params=split_params)
 
 
 def record_grads(state) -> list:
@@ -133,3 +136,62 @@ def rank_cases(device, sd: dict, cases: dict, bn_case: dict) -> dict:
                  "stats": {k: v.numpy() for k, v in model.state_dict().items()
                            if "running" in k}}
     return out
+
+
+def whole_digest(state) -> str:
+    """SHA-256 of the state as a checkpoint holds it (its state dicts: a
+    split model's and optimizer's whole tensors, gathered; every rank
+    calls it)."""
+    h = hashlib.sha256()
+    opt = state.optimizer.state_dict()
+    tensors = list(state.model.state_dict().values())
+    for _, st in sorted(opt["inner"]["state"].items()):
+        tensors += [v for _, v in sorted(st.items())]
+    tensors += opt["mean"] or []
+    for t in tensors:
+        h.update(t.detach().cpu().reshape(-1).view(torch.uint8).numpy().tobytes())
+    h.update(state.generator.get_state().numpy().tobytes())
+    h.update(np.int64([state.step, state.optimizer.mini_step]).tobytes())
+    return h.hexdigest()
+
+
+def rank_split(device, sd: dict, case: dict, ckpt_dir) -> dict:
+    """One rank of a world whose mesh (``case["mesh"]``) has a model axis:
+    the case with the parameters split over it
+    (``create_train_state(split_params=True)``). Returns each step's
+    metrics, the digest of the state as a checkpoint holds it (and of a
+    fresh split state restored from the checkpoint the ranks save under
+    ``ckpt_dir``), the shapes this rank stores (parameters and optimizer
+    state) and its slices of the split parameters; rank 0 adds the gathered ``state_dict()``, the gathered
+    optimizer moments, the trained tensors and each step's gradients (its
+    slices) by name."""
+    torch.set_num_threads(1)
+    rank = torch.distributed.get_rank()
+    mesh = create_mesh(*case["mesh"])
+    state = port_state(case, sd, device, mesh, split_params=True)
+    grads = record_grads(state)
+    opt = state.optimizer
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    res = {"coords": mesh.coords, "metrics": run_steps(case, state, device, mesh),
+           "shapes": {n: tuple(p.shape) for n, p in state.model.named_parameters()},
+           "axes": {names[id(p)]: a for p, a in zip(opt.params, opt.axes)},
+           "moment_shapes": {names[id(p)]: {k: tuple(v.shape) for k, v in st.items()}
+                             for p, st in opt.inner.state.items()},
+           "slices": {names[id(p)]: p.detach().numpy().copy()
+                      for p, a in zip(opt.params, opt.axes) if a is not None},
+           "digest": whole_digest(state)}
+    manager = CheckpointManager(ckpt_dir)
+    manager.save("split", state)
+    fresh = port_state(case, sd, device, mesh, split_params=True)
+    res["restored_digest"] = whole_digest(manager.restore("split", fresh))
+    # gathered: every rank takes part
+    whole = state.model.state_dict()
+    moments = opt.state_dict()["inner"]["state"]
+    if rank == 0:
+        kept = set(grads[0])
+        res["state"] = {k: v.numpy() for k, v in whole.items() if k in kept or "running" in k}
+        res["grads"] = [{k: g.numpy() for k, g in step.items()} for step in grads]
+        res["state_dict"] = {k: v.numpy() for k, v in whole.items()}
+        res["moments"] = [{k: v.numpy() for k, v in moments[i].items()}
+                          for i in range(len(opt.params))]
+    return res

@@ -49,9 +49,22 @@ def randomize_batchnorm(variables, seed=0):
     return {"params": params, "batch_stats": stats}
 
 
+# (JAX config, seed) -> (model, variables): a worker of the suite runs
+# several port files, and most of them start from the same tiny model
+_JAX_MODELS = {}
+
+
 def jax_model(jax_config, seed=0):
-    model, variables = init_model(jax_config, jax.random.PRNGKey(seed))
-    return model, randomize_batchnorm(variables, seed)
+    """The JAX model of ``jax_config`` and its variables from
+    ``PRNGKey(seed)`` with random BatchNorms. The init runs once a process
+    for each configuration and seed; every call gets its own copy of the
+    variables."""
+    key = (jax_config, seed)
+    if key not in _JAX_MODELS:
+        model, variables = init_model(jax_config, jax.random.PRNGKey(seed))
+        _JAX_MODELS[key] = (model, randomize_batchnorm(variables, seed))
+    model, variables = _JAX_MODELS[key]
+    return model, jax.tree_util.tree_map(np.copy, variables)
 
 
 def window(seed, t0=0.0, s=S, h=H, w=W):
