@@ -22,6 +22,11 @@ split_lanes``), the lanes padded to a multiple of the devices as
   * ``timing`` dicts (``KittiEvaluator.timing``) add up each stream's
     wall seconds, the seconds spent waiting on decode, the window steps
     and the scored frames.
+  * While a profiler collects, each window step is the span
+    ``ode_vio.eval.step`` holding ``eval.decode_wait`` (the wait that
+    ``timing`` adds up), ``eval.assemble`` (the lanes' windows),
+    ``eval.stage`` (stack and copy to the device) and ``eval.forward``
+    (the call and the poses' readback) (``utils/profiling.py::span``).
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from ode_vio_tpu_torch.data.kitti import (
 )
 from ode_vio_tpu_torch.parallel.lanes import split_lanes
 from ode_vio_tpu_torch.utils import geometry as geo
+from ode_vio_tpu_torch.utils.profiling import span
 
 SEGMENT_LENGTHS = (100, 200, 300, 400, 500, 600, 700, 800)
 SEGMENT_STEP = 10  # evaluate every 10th start frame (KITTI_eval.py:258)
@@ -281,25 +287,30 @@ def stream_eval_lanes(
     try:
         submit(0)
         for w in range(n_windows):
-            if w + 1 < n_windows:
-                submit(w + 1)
-            t = time.perf_counter()
-            decoded = pf.get(w)
-            timing["decode_wait_s"] += time.perf_counter() - t
-            ws, off = [], 0
-            for p in parts:
-                i = min(w, len(p) - 1)
-                n = len(p.paths(i))
-                ws.append(p.assemble(i, decoded[off : off + n]))
-                off += n
-            imgs = _put(infer_fn, [ws[s].imgs for s in srcs])
-            imus = _put(infer_fn, [ws[s].imus for s in srcs])
-            ts = _put(infer_fn, [ws[s].ts for s in srcs])
-            poses, carry = infer_fn(imgs, imus, ts, carry)
-            poses = _numpy(poses)
-            for lane, p in enumerate(parts):
-                if w < len(p):
-                    chunks[lane].append(poses[lane, : ws[lane].valid])
+            with span("ode_vio.eval.step"):
+                if w + 1 < n_windows:
+                    submit(w + 1)
+                with span("ode_vio.eval.decode_wait"):
+                    t = time.perf_counter()
+                    decoded = pf.get(w)
+                    timing["decode_wait_s"] += time.perf_counter() - t
+                with span("ode_vio.eval.assemble"):
+                    ws, off = [], 0
+                    for p in parts:
+                        i = min(w, len(p) - 1)
+                        n = len(p.paths(i))
+                        ws.append(p.assemble(i, decoded[off : off + n]))
+                        off += n
+                with span("ode_vio.eval.stage"):
+                    imgs = _put(infer_fn, [ws[s].imgs for s in srcs])
+                    imus = _put(infer_fn, [ws[s].imus for s in srcs])
+                    ts = _put(infer_fn, [ws[s].ts for s in srcs])
+                with span("ode_vio.eval.forward"):
+                    poses, carry = infer_fn(imgs, imus, ts, carry)
+                    poses = _numpy(poses)
+                for lane, p in enumerate(parts):
+                    if w < len(p):
+                        chunks[lane].append(poses[lane, : ws[lane].valid])
     finally:
         pf.close()
     timing["wall_s"] += time.perf_counter() - t_start
@@ -390,17 +401,20 @@ class KittiEvaluator:
             chunks = []
             pf.submit(0, part.paths(0))
             for i in range(len(part)):
-                if i + 1 < len(part):
-                    pf.submit(i + 1, part.paths(i + 1))
-                t = time.perf_counter()
-                decoded = pf.get(i)
-                self.timing["decode_wait_s"] += time.perf_counter() - t
-                w = part.assemble(i, decoded)
-                poses, carry = infer_fn(
-                    _put(infer_fn, [w.imgs]), _put(infer_fn, [w.imus]),
-                    _put(infer_fn, [w.ts]), carry
-                )
-                chunks.append(_numpy(poses)[0, : w.valid])
+                with span("ode_vio.eval.step"):
+                    if i + 1 < len(part):
+                        pf.submit(i + 1, part.paths(i + 1))
+                    with span("ode_vio.eval.decode_wait"):
+                        t = time.perf_counter()
+                        decoded = pf.get(i)
+                        self.timing["decode_wait_s"] += time.perf_counter() - t
+                    with span("ode_vio.eval.assemble"):
+                        w = part.assemble(i, decoded)
+                    with span("ode_vio.eval.stage"):
+                        x = [_put(infer_fn, [a]) for a in (w.imgs, w.imus, w.ts)]
+                    with span("ode_vio.eval.forward"):
+                        poses, carry = infer_fn(*x, carry)
+                        chunks.append(_numpy(poses)[0, : w.valid])
         finally:
             pf.close()
         self.timing["wall_s"] += time.perf_counter() - t_start

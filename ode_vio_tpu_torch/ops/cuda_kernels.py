@@ -38,7 +38,10 @@ libraries are loaded with ``ctypes``; pointers and the stream pass as
 Dispatch: a wrapper given CPU tensors runs the plain PyTorch version in
 this module; given CUDA tensors it launches the kernel or raises. Each
 wrapper counts its launches in a plain integer attribute (``.launches``),
-which adds one per kernel launch and nowhere else.
+which adds one per kernel launch and nowhere else. While a profiler
+collects, K1 also adds each launch's row evaluations (its lockstep field
+evaluations, a work word, times its rows) to the counter
+``ode_vio.k1.row_evals`` of ``utils/profiling.py``.
 """
 
 from __future__ import annotations
@@ -59,6 +62,7 @@ from ode_vio_tpu_torch.ops.interpolation import InterpolatedPath, cdeint_path
 from ode_vio_tpu_torch.ops.mlp import Layer, apply_cde_func, apply_mlp
 from ode_vio_tpu_torch.ops.solvers.odeint import SolverOptions, solve_ivp_dt
 from ode_vio_tpu_torch.ops.solvers.tableaus import ButcherTableau, get_tableau
+from ode_vio_tpu_torch.utils import profiling
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE_DIR / "csrc"
@@ -492,6 +496,10 @@ def fused_ode_solve(layers: Sequence[Layer], y0: torch.Tensor,
             raise RuntimeError(f"fused_ode_solve kernel launch failed: CUDA error {err}")
         fused_ode_solve.launches += 1
         fused_ode_solve.last = (plan, work)
+        if profiling.collecting():
+            # the launch's lockstep field evaluations times its rows: the
+            # row evaluations it did, needed or not (read after the launch)
+            profiling.count("ode_vio.k1.row_evals", work[3], n)
         return y1, dt_out, acc, rej, inc
 
     rows = max_grid_rows(tuple(dims), *_device_grid(device), tab.num_stages)

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ode_vio_tpu_torch.config import resolve_device
+from ode_vio_tpu_torch.utils.profiling import span
 
 
 def split_lanes(infer: Callable, devices: Sequence) -> Callable:
@@ -27,7 +28,10 @@ def split_lanes(infer: Callable, devices: Sequence) -> Callable:
     poses come back on the CPU in lane order, and the carry is the list of
     the replicas' carries. The replicas count their truncated solves with
     ``infer``'s own (``incomplete()``; ``incomplete_by_lane`` is theirs in
-    lane order)."""
+    lane order). While a profiler collects, each replica's copy of its
+    block is the span ``ode_vio.lanes.h2d`` and its call
+    ``ode_vio.lanes.forward``; the poses' copy to the host is
+    ``ode_vio.lanes.readback``."""
     devices = [resolve_device(d) for d in devices]
     # the first block runs on ``infer`` itself where it lies on its device
     replicas = [infer if r == 0 and d == infer.device else infer.replicate(d)
@@ -42,13 +46,16 @@ def split_lanes(infer: Callable, devices: Sequence) -> Callable:
         poses, carries = [], []
         for r, rep in enumerate(replicas):
             rows = slice(r * per, (r + 1) * per)
-            p, c = rep(*(x[rows].to(rep.device) for x in (img, imu, ts)),
-                       None if carry is None else carry[r],
-                       None if active is None else np.asarray(active)[rows],
-                       lanes=(r * per, B))
+            with span("ode_vio.lanes.h2d"):
+                xs = [x[rows].to(rep.device) for x in (img, imu, ts)]
+            with span("ode_vio.lanes.forward"):
+                p, c = rep(*xs, None if carry is None else carry[r],
+                           None if active is None else np.asarray(active)[rows],
+                           lanes=(r * per, B))
             poses.append(p)
             carries.append(c)
-        return torch.cat([p.cpu() for p in poses]), carries
+        with span("ode_vio.lanes.readback"):
+            return torch.cat([p.cpu() for p in poses]), carries
 
     def incomplete_by_lane():
         lanes = [rep.incomplete_by_lane() for rep in replicas]

@@ -19,6 +19,10 @@ Sessions are lanes of one fixed-size batch of ``max_sessions``:
   as in the JAX engine.
 * Truncated-solve counts accumulate only for lanes that served a real
   window.
+* While a profiler collects, a step is the span ``ode_vio.serve.step``
+  holding ``serve.gather`` (the lanes' windows), ``serve.stack`` (the
+  batch), the replicas' ``lanes.*`` spans and ``serve.carry`` (the lane
+  mask and the poses on the host) (``utils/profiling.py::span``).
 * The lanes split over ``devices`` (default: the one ``device``) as
   equal contiguous blocks, one replica of the model per device with its
   own carry (``parallel/lanes.py::split_lanes``), where JAX shards the lane
@@ -37,6 +41,7 @@ from ode_vio_tpu_torch.config import resolve_device
 from ode_vio_tpu_torch.models.common import Carry
 from ode_vio_tpu_torch.parallel.lanes import split_lanes
 from ode_vio_tpu_torch.training.loop import make_infer_fn
+from ode_vio_tpu_torch.utils.profiling import span
 
 Window = Tuple[np.ndarray, np.ndarray, np.ndarray]  # (imgs, imus, ts)
 
@@ -128,35 +133,39 @@ class StreamingEngine:
                 raise KeyError(f"session {sid} is not open")
         if self._proto is None:
             self._set_proto(*next(iter(windows.values())))
-
-        stacked = []
-        for lane in range(self.N):
-            if lane in windows:
-                imgs, imus, ts = windows[lane]
-                ts = np.asarray(ts, np.float64)
-                if lane in self._fresh:
-                    # re-base this session's clock to 0 (cold-start semantics)
-                    self._t_off[lane] = ts[0]
-                    self._fresh.discard(lane)
-                w = (np.asarray(imgs, np.float32), np.asarray(imus, np.float32),
-                     (ts - self._t_off[lane]).astype(np.float32))
-                self._last[lane] = w
-            else:
-                # idle lane: replay (outputs discarded, carry restored)
-                w = self._last.get(lane, self._proto)
-            stacked.append(w)
-        imgs, imus, ts = (self._put([w[k] for w in stacked]) for k in range(3))
-
-        active = np.array([ln in windows for ln in range(self.N)])
-        poses, carry = self._infer(imgs, imus, ts, self._carry, active=active)
-        # lanes that did not really start yet stay zeroed
-        old = (self._carry if self._carry is not None
-               else [_leaves(torch.zeros_like, c) for c in carry])
-        masks = torch.from_numpy(active).split(self._per)
-        self._carry = [_select_lanes(m.to(_first_leaf(c).device), c, o, self._axis)
-                       for m, c, o in zip(masks, carry, old)]
-        poses = poses.numpy()
+        with span("ode_vio.serve.step"):
+            with span("ode_vio.serve.gather"):
+                stacked = [self._lane_window(lane, windows) for lane in range(self.N)]
+            with span("ode_vio.serve.stack"):
+                imgs, imus, ts = (self._put([w[k] for w in stacked]) for k in range(3))
+            active = np.array([ln in windows for ln in range(self.N)])
+            poses, carry = self._infer(imgs, imus, ts, self._carry, active=active)
+            with span("ode_vio.serve.carry"):
+                # lanes that did not really start yet stay zeroed
+                old = (self._carry if self._carry is not None
+                       else [_leaves(torch.zeros_like, c) for c in carry])
+                masks = torch.from_numpy(active).split(self._per)
+                self._carry = [_select_lanes(m.to(_first_leaf(c).device), c, o, self._axis)
+                               for m, c, o in zip(masks, carry, old)]
+                poses = poses.numpy()
         return {sid: poses[sid] for sid in windows}
+
+    def _lane_window(self, lane: int, windows: Dict[int, Window]) -> Window:
+        """The window ``lane`` runs this step: its submitted one as float32
+        on the session's re-based clock, or, for an idle lane, a replay
+        (outputs discarded, carry restored)."""
+        if lane not in windows:
+            return self._last.get(lane, self._proto)
+        imgs, imus, ts = windows[lane]
+        ts = np.asarray(ts, np.float64)
+        if lane in self._fresh:
+            # re-base this session's clock to 0 (cold-start semantics)
+            self._t_off[lane] = ts[0]
+            self._fresh.discard(lane)
+        w = (np.asarray(imgs, np.float32), np.asarray(imus, np.float32),
+             (ts - self._t_off[lane]).astype(np.float32))
+        self._last[lane] = w
+        return w
 
     def warmup(self, proto: Window) -> None:
         """Run the cold-start and the carried forward once on prototype

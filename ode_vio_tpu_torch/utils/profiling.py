@@ -1,16 +1,18 @@
 """Tracing, FLOP accounting and NaN trapping (counterpart of
 ``ode_vio_tpu/utils/profiling.py``).
 
-* :func:`annotate` -- a named range in the profiler's trace
-  (``torch.profiler.record_function``; it also pushes an NVTX range under
-  ``torch.autograd.profiler.emit_nvtx``), where JAX has ``jax.named_scope``.
+* :func:`span`, :func:`count`, :func:`record`, :func:`clear` -- the
+  program's own spans and work counters, switched on by the profiler: while
+  a ``torch.profiler`` (or ``emit_nvtx``) collects, a span is a named range
+  in its trace (``record_function``, an NVTX range under ``emit_nvtx``),
+  where JAX has ``jax.named_scope``, and both are kept in memory on the
+  host's ``time.perf_counter()`` clock; otherwise they cost one flag check.
 * :func:`trace` -- a ``torch.profiler`` trace of the host and, on a machine
   with a card, of the card, written as a Chrome/Perfetto trace JSON into a
   directory (``cli.train --profile_dir``).
 * :func:`flops_analysis` -- the FLOPs of one call of a function, counted by
   ``torch.utils.flop_counter.FlopCounterMode``.
 * :func:`device_memory_stats` -- the CUDA caching allocator's statistics.
-* :class:`StepTimer` -- wall-clock step times that wait for the result.
 * :func:`set_debug_nans` / :func:`debug_nans` -- ``--debug_nans``: raise
   ``FloatingPointError`` at the first module whose output holds a NaN, as
   ``jax_debug_nans`` does (NaN only, not Inf), and turn on autograd's
@@ -20,18 +22,113 @@
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
+import threading
 import time
 from pathlib import Path
-from typing import Callable, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 
-def annotate(name: str):
-    """A named range of the profiler's trace around a block."""
-    return torch.profiler.record_function(name)
+# Whether a profiler is collecting: false with none, and during a
+# ``torch.profiler`` schedule's warm-up.
+collecting = torch.autograd._profiler_enabled
+
+
+class Span(NamedTuple):
+    """One closed span: ``name``, its start and end on the host's
+    ``time.perf_counter()`` clock, the name of the program span it lies in
+    (None at the top), and ``step``, the ordinal of its top-level span (a
+    top-level span carries its own): the spans of one engine step or one
+    eval window step share it."""
+
+    name: str
+    t0: float
+    t1: float
+    parent: Optional[str]
+    step: int
+
+
+class Count(NamedTuple):
+    """One count as :func:`record` returns it: ``name``, when it was
+    counted (``time.perf_counter()``) and its value."""
+
+    name: str
+    t: float
+    value: int
+
+
+_spans: List[Span] = []
+_counts: list = []            # (name, t, value (a number or a tensor), scale)
+_open = threading.local()     # this thread's stack of open spans
+_tops = itertools.count()     # the ordinals of top-level spans
+
+
+class _Range:
+    __slots__ = ("name", "rf", "t0", "parent", "step")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        stack = getattr(_open, "stack", None)
+        if stack is None:
+            stack = _open.stack = []
+        if stack:
+            self.parent, self.step = stack[-1].name, stack[-1].step
+        else:
+            self.parent, self.step = None, next(_tops)
+        stack.append(self)
+        self.rf = torch.profiler.record_function(self.name)
+        self.rf.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.perf_counter()
+        self.rf.__exit__(*exc)
+        _open.stack.pop()
+        _spans.append(Span(self.name, self.t0, t1, self.parent, self.step))
+        return False
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A named span around a block (``ode_vio.<layer>.<what>``). With no
+    profiler collecting it is one shared no-op context after a single flag
+    check: no range, no device operation, no host sync. While one collects
+    it is a ``record_function`` range of that name, on the clock of the
+    trace's kernels and copies, and a :class:`Span` kept for
+    :func:`record`."""
+    return _Range(name) if collecting() else _OFF
+
+
+def count(name: str, value, scale: int = 1) -> None:
+    """Add ``value * scale`` to the counter ``name`` while a profiler
+    collects (nothing otherwise). ``value`` may be a device tensor of one
+    element: it is read by :func:`record`, never here."""
+    if collecting():
+        _counts.append((name, time.perf_counter(), value, scale))
+
+
+def record() -> Dict[str, list]:
+    """What the spans and counters kept, without clearing it (several
+    readers may read one run): ``{"spans": [Span, ...] in closing order,
+    "counts": [Count, ...] in counting order}``. Reading a count held as a
+    device tensor waits for the device that holds it."""
+    return {"spans": list(_spans),
+            "counts": [Count(n, t, int(v) * s) for n, t, v, s in _counts]}
+
+
+def clear() -> None:
+    """Forget every span and count kept so far."""
+    _spans.clear()
+    _counts.clear()
 
 
 @contextlib.contextmanager
@@ -84,37 +181,6 @@ def device_memory_stats(device=None) -> dict:
         device = "cuda" if torch.cuda.is_available() else "cpu"
     device = torch.device(device)
     return dict(torch.cuda.memory_stats(device)) if device.type == "cuda" else {}
-
-
-def _cuda_devices(result) -> set:
-    if isinstance(result, torch.Tensor):
-        return {result.device} if result.is_cuda else set()
-    if isinstance(result, dict):
-        result = list(result.values())
-    if isinstance(result, (list, tuple)):
-        return set().union(*(_cuda_devices(r) for r in result))
-    return set()
-
-
-class StepTimer:
-    """Wall-clock step times; ``measure(result_getter)`` waits for the
-    devices of the getter's tensors before it reads the clock."""
-
-    def __init__(self):
-        self.times = []
-
-    @contextlib.contextmanager
-    def measure(self, result_getter: Optional[Callable] = None):
-        t0 = time.perf_counter()
-        yield
-        if result_getter is not None:
-            for device in _cuda_devices(result_getter()):
-                torch.cuda.synchronize(device)
-        self.times.append(time.perf_counter() - t0)
-
-    @property
-    def mean(self) -> float:
-        return sum(self.times) / max(len(self.times), 1)
 
 
 def _raise_on_nan(module, inputs, output) -> None:

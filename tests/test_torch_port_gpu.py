@@ -105,6 +105,43 @@ def test_kernel_matches_plain_on_gpu(n, feat, hidden, zero_rows, gain, dt0_all, 
     assert torch.equal(out[1][list(zero_rows)], dt0[list(zero_rows)])
 
 
+@pytest.mark.gpu
+def test_k1_row_evals_counter_on_gpu():
+    """While a profiler collects, each K1 launch adds its lockstep field
+    evaluations (work word 3) times its rows to ``ode_vio.k1.row_evals``;
+    with none collecting it adds nothing. 800 rows take two launches of
+    400."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from ode_vio_tpu_torch.utils import profiling
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    props = torch.cuda.get_device_properties(0)
+    per = cuda_kernels.max_grid_rows((768, 1024, 1024, 768), props.multi_processor_count,
+                                     props.shared_memory_per_block_optin)
+
+    def solve(n, seed):
+        layers, y0, t0, t1, dt0 = problem(n, 768, 1024, (0,), seed=seed)
+        cuda_kernels.fused_ode_solve(layers, y0, t0, t1, dt0=dt0, **KW)
+        return int(cuda_kernels.fused_ode_solve.last[1][3])   # the latest launch's
+
+    profiling.clear()
+    solve(12, 1)
+    assert profiling.record()["counts"] == []
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        evals = [solve(12, 2), solve(96, 3)]
+        before = cuda_kernels.fused_ode_solve.launches
+        evals.append(solve(800, 4))
+        assert cuda_kernels.fused_ode_solve.launches == before + 2 and per < 800
+    counts = profiling.record()["counts"]
+    profiling.clear()
+    assert [c.name for c in counts] == ["ode_vio.k1.row_evals"] * 4
+    assert [c.value for c in counts[:2]] == [evals[0] * 12, evals[1] * 96]
+    # the split call's two launches take 400 rows each (in_row_pieces)
+    assert evals[0] > 0 and counts[2].value % 400 == 0
+    assert counts[3].value == evals[2] * 400
+
+
 CDE_CASE_NAMES = ("main", "cubic", "history_prefix", "rde_off_knots", "n5_ragged", "rejects",
                   "budget", "history_c54", "history_c24", "advance_collapsed", "advance_full",
                   "n1", "n32")
