@@ -28,9 +28,12 @@ def split_lanes(infer: Callable, devices: Sequence) -> Callable:
     poses come back on the CPU in lane order, and the carry is the list of
     the replicas' carries. The replicas count their truncated solves with
     ``infer``'s own (``incomplete()``; ``incomplete_by_lane`` is theirs in
-    lane order). While a profiler collects, each replica's copy of its
-    block is the span ``ode_vio.lanes.h2d`` and its call
-    ``ode_vio.lanes.forward``; the poses' copy to the host is
+    lane order). ``img``, ``imu`` and ``ts`` are each a tensor of all the
+    lanes, which the call copies block by block to the replicas' devices,
+    or a list of the blocks already on them, taken as they lie (the
+    serving engine's resident lane batch). While a profiler collects, each
+    replica's copy of its block is the span ``ode_vio.lanes.h2d`` and its
+    call ``ode_vio.lanes.forward``; the poses' copy to the host is
     ``ode_vio.lanes.readback``."""
     devices = [resolve_device(d) for d in devices]
     # the first block runs on ``infer`` itself where it lies on its device
@@ -39,15 +42,21 @@ def split_lanes(infer: Callable, devices: Sequence) -> Callable:
     n = len(replicas)
 
     def split(img, imu, ts, carry=None, active=None):
-        B = img.shape[0]
+        placed = isinstance(img, (list, tuple))
+        if placed and len(img) != n:
+            raise ValueError(f"{len(img)} blocks of lanes for {n} replicas")
+        B = img[0].shape[0] * n if placed else img.shape[0]
         if B % n:
             raise ValueError(f"{B} lanes do not split over {n} replicas")
         per = B // n
         poses, carries = [], []
         for r, rep in enumerate(replicas):
             rows = slice(r * per, (r + 1) * per)
-            with span("ode_vio.lanes.h2d"):
-                xs = [x[rows].to(rep.device) for x in (img, imu, ts)]
+            if placed:
+                xs = [x[r] for x in (img, imu, ts)]
+            else:
+                with span("ode_vio.lanes.h2d"):
+                    xs = [x[rows].to(rep.device) for x in (img, imu, ts)]
             with span("ode_vio.lanes.forward"):
                 p, c = rep(*xs, None if carry is None else carry[r],
                            None if active is None else np.asarray(active)[rows],

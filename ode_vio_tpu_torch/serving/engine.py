@@ -11,8 +11,16 @@ Sessions are lanes of one fixed-size batch of ``max_sessions``:
   (``z0 (B, H)``, ``buf (B, K, D)``, ``cnt (B,)``). Here the port differs
   on purpose from ``ode_vio_tpu/serving/engine.py``, which takes axis 1
   for every leaf of 3 or more dims, the history ring buffer included.
-* Idle lanes replay their previous window (or a zero prototype) and
-  their carry is restored afterwards, so an idle session never advances.
+* The lane batch stays on the device: one block of lanes per replica,
+  allocated once (by ``warmup`` or the first step) and filled with the
+  prototype window (zero images and IMU, ts 0, 0.1, ...). A step copies
+  only the submitted windows into it, each into its lane's pinned host
+  slot and from there to the lane's device slot without blocking (on a
+  CPU device straight into the lane's slot). An idle lane's slot holds
+  what the lane replays: its last window, or the prototype before its
+  first window, after ``close_session`` and after ``warmup``. Idle lanes
+  run that window and their carry is restored afterwards, so an idle
+  session never advances. A window shaped unlike the slots is refused.
 * A fresh session gets a zeroed lane carry and its clock re-based to 0.
   A session that opens after the engine's first step therefore starts
   from a zero state, for cde/rde z0 = 0 and not ``tanh(initial(obs0))``,
@@ -20,13 +28,17 @@ Sessions are lanes of one fixed-size batch of ``max_sessions``:
 * Truncated-solve counts accumulate only for lanes that served a real
   window.
 * While a profiler collects, a step is the span ``ode_vio.serve.step``
-  holding ``serve.gather`` (the lanes' windows), ``serve.stack`` (the
-  batch), the replicas' ``lanes.*`` spans and ``serve.carry`` (the lane
-  mask and the poses on the host) (``utils/profiling.py::span``).
+  holding ``serve.gather`` (the submitted windows as float32 on their
+  re-based clocks), ``serve.stack`` (their copies into the host slots),
+  ``lanes.h2d`` (the copies to the device slots), the replicas'
+  ``lanes.*`` spans and ``serve.carry`` (the lane mask and the poses on
+  the host), and counts the lanes copied as
+  ``ode_vio.serve.lanes_staged`` (``utils/profiling.py::span``, ``count``).
 * The lanes split over ``devices`` (default: the one ``device``) as
   equal contiguous blocks, one replica of the model per device with its
-  own carry (``parallel/lanes.py::split_lanes``), where JAX shards the lane
-  axis over a data mesh. Hard fusion's noise is drawn for every lane and
+  own carry and its own block of the lane batch
+  (``parallel/lanes.py::split_lanes``), where JAX shards the lane axis
+  over a data mesh. Hard fusion's noise is drawn for every lane and
   sliced, so a session's poses do not depend on the split.
 """
 
@@ -41,7 +53,7 @@ from ode_vio_tpu_torch.config import resolve_device
 from ode_vio_tpu_torch.models.common import Carry
 from ode_vio_tpu_torch.parallel.lanes import split_lanes
 from ode_vio_tpu_torch.training.loop import make_infer_fn
-from ode_vio_tpu_torch.utils.profiling import span
+from ode_vio_tpu_torch.utils.profiling import count, span
 
 Window = Tuple[np.ndarray, np.ndarray, np.ndarray]  # (imgs, imus, ts)
 
@@ -79,22 +91,28 @@ class StreamingEngine:
     def __init__(self, model, state_dict=None, max_sessions: int = 8,
                  fold_bn: bool = True, *, device="cuda", devices: Optional[Sequence] = None):
         self.device = resolve_device(device)
-        devices = [self.device] if devices is None else list(devices)
+        self._devices = [self.device] if devices is None else [resolve_device(d) for d in devices]
         self.N = int(max_sessions)
-        if self.N % len(devices):
-            raise ValueError(f"max_sessions={self.N} does not split over {len(devices)} devices")
-        self._per = self.N // len(devices)
+        if self.N % len(self._devices):
+            raise ValueError(f"max_sessions={self.N} does not split over "
+                             f"{len(self._devices)} devices")
+        self._per = self.N // len(self._devices)
         self._axis = model.carry_lane_axis
         self._infer = split_lanes(make_infer_fn(model, state_dict, fold_bn=fold_bn,
-                                                device=devices[0]), devices)
+                                                device=self._devices[0]), self._devices)
         self._free = list(range(self.N - 1, -1, -1))
         self._open: set = set()
         self._fresh: set = set()
         self._t_off = np.zeros(self.N, np.float64)
         # one carry per device, each over its block of lanes
         self._carry: Optional[List[Carry]] = None
-        self._last: Dict[int, Window] = {}
         self._proto: Optional[Window] = None
+        # the lane batch: per field (imgs, imus, ts) one block per device;
+        # per block its pinned host slots and, per lane, an event recorded
+        # after the last copy out of the lane's pinned slot (None on a CPU)
+        self._batch: Optional[Tuple[List[torch.Tensor], ...]] = None
+        self._pinned: List[Optional[Tuple[torch.Tensor, ...]]] = []
+        self._copied: List[Optional[List[torch.cuda.Event]]] = []
 
     # -- session lifecycle -------------------------------------------------
     def open_session(self) -> int:
@@ -112,34 +130,100 @@ class StreamingEngine:
     def close_session(self, sid: int) -> None:
         self._open.discard(sid)
         self._fresh.discard(sid)
-        self._last.pop(sid, None)
+        if self._batch is not None:
+            self._fill(*divmod(sid, self._per))
         self._free.append(sid)
 
-    # -- serving -----------------------------------------------------------
+    # -- the lane batch ----------------------------------------------------
     def _set_proto(self, imgs, imus, ts) -> None:
         self._proto = (np.zeros_like(np.asarray(imgs, np.float32)),
                        np.zeros_like(np.asarray(imus, np.float32)),
                        np.arange(len(ts), dtype=np.float32) * 0.1)
 
-    @staticmethod
-    def _put(arrays) -> torch.Tensor:
-        return torch.from_numpy(np.stack(arrays, 0))
+    def _fill(self, part: int, rows) -> None:
+        """Slots ``rows`` (an index or a slice) of block ``part`` back to
+        the prototype."""
+        with torch.inference_mode():
+            for blocks, a in zip(self._batch, self._proto):
+                blocks[part][rows].copy_(torch.from_numpy(a).to(blocks[part].device))
 
+    def _allocate(self) -> None:
+        """The lane batch at the prototype's shapes, every slot at the
+        prototype; kept where its shapes already are the prototype's."""
+        shapes = [(self._per, *a.shape) for a in self._proto]
+        if self._batch is None or [tuple(b[0].shape) for b in self._batch] != shapes:
+            self._batch, self._pinned, self._copied = ([], [], []), [], []
+            with torch.inference_mode():
+                for dev in self._devices:
+                    for blocks, shape in zip(self._batch, shapes):
+                        blocks.append(torch.empty(shape, dtype=torch.float32, device=dev))
+                    cuda = dev.type == "cuda"
+                    self._pinned.append(tuple(torch.empty(shape, dtype=torch.float32,
+                                                          pin_memory=True)
+                                              for shape in shapes) if cuda else None)
+                    self._copied.append([torch.cuda.Event() for _ in range(self._per)]
+                                        if cuda else None)
+        for part in range(len(self._devices)):
+            self._fill(part, slice(None))
+
+    def _lane_window(self, lane: int, window: Window) -> Window:
+        """Submitted ``window`` of ``lane`` as float32 on the session's
+        re-based clock."""
+        imgs, imus, ts = window
+        ts = np.asarray(ts, np.float64)
+        if lane in self._fresh:
+            # re-base this session's clock to 0 (cold-start semantics)
+            self._t_off[lane] = ts[0]
+            self._fresh.discard(lane)
+        return (np.ascontiguousarray(imgs, np.float32), np.ascontiguousarray(imus, np.float32),
+                (ts - self._t_off[lane]).astype(np.float32))
+
+    def _stage(self, staged: Dict[int, Window]) -> None:
+        """The submitted windows into their lanes' slots of the batch."""
+        with torch.inference_mode():
+            with span("ode_vio.serve.stack"):
+                for lane, w in staged.items():
+                    part, local = divmod(lane, self._per)
+                    host = self._pinned[part]
+                    if host is None:
+                        host = [blocks[part] for blocks in self._batch]
+                    else:
+                        self._copied[part][local].synchronize()
+                    for slot, a in zip(host, w):
+                        slot[local].copy_(torch.from_numpy(a))
+            with span("ode_vio.lanes.h2d"):
+                for lane in staged:
+                    part, local = divmod(lane, self._per)
+                    if self._pinned[part] is None:
+                        continue
+                    for blocks, src in zip(self._batch, self._pinned[part]):
+                        blocks[part][local].copy_(src[local], non_blocking=True)
+                    self._copied[part][local].record(
+                        torch.cuda.current_stream(self._devices[part]))
+        count("ode_vio.serve.lanes_staged", len(staged))
+
+    # -- serving -----------------------------------------------------------
     def step(self, windows: Dict[int, Window]) -> Dict[int, np.ndarray]:
         if not windows:
             return {}
         for sid in windows:
             if sid not in self._open:
                 raise KeyError(f"session {sid} is not open")
-        if self._proto is None:
+        if self._batch is None:
             self._set_proto(*next(iter(windows.values())))
+            self._allocate()
+        want = tuple(a.shape for a in self._proto)
+        for sid, w in windows.items():
+            got = tuple(np.shape(a) for a in w)
+            if got != want:
+                raise ValueError(f"session {sid}'s window has shapes (imgs, imus, ts) {got}; "
+                                 f"the lane batch's slots are {want}")
         with span("ode_vio.serve.step"):
             with span("ode_vio.serve.gather"):
-                stacked = [self._lane_window(lane, windows) for lane in range(self.N)]
-            with span("ode_vio.serve.stack"):
-                imgs, imus, ts = (self._put([w[k] for w in stacked]) for k in range(3))
+                staged = {lane: self._lane_window(lane, w) for lane, w in windows.items()}
+            self._stage(staged)
             active = np.array([ln in windows for ln in range(self.N)])
-            poses, carry = self._infer(imgs, imus, ts, self._carry, active=active)
+            poses, carry = self._infer(*self._batch, self._carry, active=active)
             with span("ode_vio.serve.carry"):
                 # lanes that did not really start yet stay zeroed
                 old = (self._carry if self._carry is not None
@@ -150,33 +234,17 @@ class StreamingEngine:
                 poses = poses.numpy()
         return {sid: poses[sid] for sid in windows}
 
-    def _lane_window(self, lane: int, windows: Dict[int, Window]) -> Window:
-        """The window ``lane`` runs this step: its submitted one as float32
-        on the session's re-based clock, or, for an idle lane, a replay
-        (outputs discarded, carry restored)."""
-        if lane not in windows:
-            return self._last.get(lane, self._proto)
-        imgs, imus, ts = windows[lane]
-        ts = np.asarray(ts, np.float64)
-        if lane in self._fresh:
-            # re-base this session's clock to 0 (cold-start semantics)
-            self._t_off[lane] = ts[0]
-            self._fresh.discard(lane)
-        w = (np.asarray(imgs, np.float32), np.asarray(imus, np.float32),
-             (ts - self._t_off[lane]).astype(np.float32))
-        self._last[lane] = w
-        return w
-
     def warmup(self, proto: Window) -> None:
         """Run the cold-start and the carried forward once on prototype
         lanes shaped like ``proto`` (building the kernels and warming the
-        caches) without a trace: the carry stays unset and the counters
-        are reset afterwards."""
+        caches) without a trace: every slot of the lane batch is left at
+        the prototype, the carry stays unset and the counters are reset
+        afterwards."""
         self._set_proto(*proto)
-        imgs, imus, ts = (self._put([a] * self.N) for a in self._proto)
+        self._allocate()
         inactive = np.zeros(self.N, bool)
-        _, carry = self._infer(imgs, imus, ts, None, active=inactive)
-        self._infer(imgs, imus, ts, carry, active=inactive)[0].cpu()
+        _, carry = self._infer(*self._batch, None, active=inactive)
+        self._infer(*self._batch, carry, active=inactive)[0].cpu()
         self._infer.reset_incomplete()
 
     def hidden(self, sid: int) -> Optional[Carry]:

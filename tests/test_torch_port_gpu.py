@@ -678,6 +678,85 @@ def test_engine_replicas_share_the_card_on_gpu(no_tf32):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("core", ["ode-rnn", "rnn"])
+def test_engine_resident_batch_on_gpu(core, no_tf32):
+    """The serving engine's lane batch resident on the card against
+    restaging every lane each step (tests/test_torch_port_serve_staging.py's
+    oracle and schedule: idle lanes, a closed and reopened lane): poses,
+    carry and batch bit for bit; its host slots pinned."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from test_torch_port_serve_staging import TINY, Restage, serve_both
+
+    from ode_vio_tpu_torch.config import ModelConfig
+    from ode_vio_tpu_torch.models.deepvio import DeepVIO
+    from ode_vio_tpu_torch.serving import StreamingEngine
+
+    torch.manual_seed(0)
+    model = DeepVIO(ModelConfig(model_type=core, **TINY))
+    sd = model.state_dict()
+    engine = StreamingEngine(model, sd, max_sessions=4, device="cuda")
+    serve_both(engine, Restage(model, sd, 4, ["cuda"]))
+    assert all(t.is_pinned() for block in engine._pinned for t in block)
+
+
+# one engine step under torch.profiler in a fresh process: late in a long
+# run of this file a profiler in the same process records no device
+# activity (test_trace_holds_cuda_kernels_on_gpu fails there alike)
+PROFILED_STEP = """
+import sys
+
+import torch
+
+sys.path.insert(0, sys.argv[2])
+from test_torch_port_serve_staging import TINY, window
+from ode_vio_tpu_torch.config import ModelConfig
+from ode_vio_tpu_torch.models.deepvio import DeepVIO
+from ode_vio_tpu_torch.serving import StreamingEngine
+
+torch.manual_seed(0)
+engine = StreamingEngine(DeepVIO(ModelConfig(model_type="rnn", **TINY)), max_sessions=4,
+                         device="cuda")
+lanes = [engine.open_session() for _ in range(3)]
+engine.step({ln: window(ln, 100.0 * (ln + 1)) for ln in lanes})
+torch.cuda.synchronize()
+activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+with torch.profiler.profile(activities=activities) as prof:
+    engine.step({lanes[0]: window(70, 300.0), lanes[2]: window(71, 400.0)})
+    torch.cuda.synchronize()
+prof.export_chrome_trace(sys.argv[1])
+"""
+
+
+@pytest.mark.gpu
+def test_engine_step_copies_only_submitted_windows_on_gpu(tmp_path):
+    """A profiled engine step with two of its four lanes submitted copies
+    to the card, from pinned memory, those two windows' bytes (images, IMU,
+    float32 ts) and no more."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from test_torch_port_serve_staging import S, window
+
+    tests = Path(__file__).resolve().parent
+    path = tmp_path / "step.json"
+    subprocess.run([sys.executable, "-c", PROFILED_STEP, str(path), str(tests)],
+                   cwd=tests.parent, check=True, timeout=600)
+    copies = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("cat") == "gpu_memcpy" and "HtoD" in e["name"]]
+    pinned = [e["args"]["bytes"] for e in copies if "Pinned" in e["name"]]
+    imgs, imus, _ = window(70, 300.0)
+    assert sorted(pinned) == sorted([imgs.nbytes, imus.nbytes, 4 * S] * 2)
+    # the rest, the lane masks and the forward's scalars, stay under a
+    # kilobyte, where one lane's images alone are 72 KiB
+    assert sum(e["args"]["bytes"] for e in copies) - sum(pinned) < 1024
+
+
+@pytest.mark.gpu
 def test_eval_lanes_split_on_gpu(tmp_path, no_tf32):
     """chip_smoke.eval_lanes at tiny widths on a tiny tree: 2 runs of two
     sequences (4 lanes) over two replicas on cuda:0 against one device:

@@ -121,7 +121,7 @@ def test_engine_spans_leave_every_bit(replicas):
         for a, b in zip(c_off, c_on):
             assert torch.equal(a, b)
     spans = profiling.record()["spans"]
-    per_step = (SERVE_STEP + ["ode_vio.lanes.h2d", "ode_vio.lanes.forward"] * replicas
+    per_step = (SERVE_STEP + ["ode_vio.lanes.h2d"] + ["ode_vio.lanes.forward"] * replicas
                 + ["ode_vio.lanes.readback", "ode_vio.serve.carry", "ode_vio.serve.step"])
     assert [s.name for s in spans] == per_step * 3
     for k in range(3):
