@@ -428,6 +428,11 @@ __device__ const float* hidden_layers(Block& blk, const FieldParams& fp,
   return in;
 }
 
+// The attempts of a solve that no one records.
+struct NoStepLog {
+  __device__ void put(int, int, float, float) const {}
+};
+
 // Integrates every row from rows.t to rows.t_end, in lockstep, with the
 // step proposals in rows.dt, which it updates; adds to the rows' counts.
 // The block owns state components [e0, e0 + ne) of F: y, the FSAL cache
@@ -437,11 +442,13 @@ __device__ const float* hidden_layers(Block& blk, const FieldParams& fp,
 // barrier has published it, and writes the block's components of it into
 // k (rows, own_max); it passes the same barriers in every block. `xsel`
 // picks the half of the stage-input buffer to write next; `steps` and
-// `evals` count lockstep steps and field evaluations.
-template <class Field>
+// `evals` count lockstep steps and field evaluations. Block 0 hands each
+// live row's attempt to `log.put(row, attempt, t, h)`: its start t and
+// its step h, negated where the step was rejected.
+template <class Field, class Log = NoStepLog>
 __device__ void lockstep_solve(Field& field, Block& blk, const TableauParams& tp,
                                const ControlParams& cp, int F, int e0, int ne, int& xsel,
-                               int& steps, int& evals) {
+                               int& steps, int& evals, const Log& log = Log()) {
   const int tid = threadIdx.x;
   const int N = blk.n_rows, nm = blk.own_max;
   const int S = tp.stages, fsal = tp.fsal;
@@ -551,6 +558,7 @@ __device__ void lockstep_solve(Field& field, Block& blk, const TableauParams& tp
       const float factor = nan_min(
           nan_max(cp.safety * powf(safe, tp.expo), cp.factor_min), cp.factor_max);
       const float dtc = rs.dtc[r], t = rs.t[r];
+      if (blk.bid == 0) log.put(r, step, t, accept ? dtc : -dtc);
       rs.dt[r] = nan_max(dtc * factor, FLT_MIN);
       rs.t[r] = accept ? (rs.clamped[r] ? rs.t_end[r] : t + dtc) : t;
       rs.accept[r] = accept;

@@ -122,6 +122,16 @@ struct CdeField {
   }
 };
 
+// Each row's attempts in one segment, (t, h) at out[(row * E + j) *
+// max_steps + attempt] (ops/cuda_kernels.py::fused_cde_solve's step log).
+struct SegmentLog {
+  float2* out;
+  int row_stride;
+  __device__ void put(int r, int attempt, float t, float h) const {
+    if (out != nullptr) out[(size_t)r * row_stride + attempt] = make_float2(t, h);
+  }
+};
+
 __global__ void __launch_bounds__(kThreads, 1)
 fused_cde_solve_kernel(const float* __restrict__ z0, const float* __restrict__ path_ts,
                        const float* __restrict__ path_b, const float* __restrict__ path_c,
@@ -130,7 +140,8 @@ fused_cde_solve_kernel(const float* __restrict__ z0, const float* __restrict__ p
                        const int* __restrict__ plan, float* scratch, unsigned* work,
                        float* __restrict__ zs_out, float* __restrict__ dt_out,
                        int* __restrict__ acc_out, int* __restrict__ rej_out,
-                       int* __restrict__ inc_out, int C, int T, int E) {
+                       int* __restrict__ inc_out, float2* __restrict__ log_out, int C,
+                       int T, int E) {
   extern __shared__ __align__(128) float smem[];
   Block blk;
   init_block(blk, plan, smem, scratch, work);
@@ -157,7 +168,9 @@ fused_cde_solve_kernel(const float* __restrict__ z0, const float* __restrict__ p
       blk.rows.t_end[r] = __ldg(eval_ts + (size_t)r * E + j);
     }
     __syncthreads();
-    lockstep_solve(field, blk, tp, cp, H, h0, nh, xsel, steps, evals);
+    const SegmentLog log{log_out == nullptr ? nullptr : log_out + (size_t)j * cp.max_steps,
+                         E * cp.max_steps};
+    lockstep_solve(field, blk, tp, cp, H, h0, nh, xsel, steps, evals, log);
     for (int q = tid; q < N * nh; q += blockDim.x)
       zs_out[((size_t)(q / nh) * E + j) * H + h0 + q % nh] = z[(q / nh) * nm + q % nh];
   }
@@ -185,7 +198,10 @@ fused_cde_solve_kernel(const float* __restrict__ z0, const float* __restrict__ p
 // The field's layers map H -> hidden -> ... -> H*C (weights, biases:
 // n_layers device pointers; dims: n_layers+1 widths). path_c and path_d
 // are both null (linear) or both set (cubic). The tableau arrays are as for
-// fused_ode_solve_launch. Returns 0 on success, else the CUDA error.
+// fused_ode_solve_launch. `steps`, null or (n_rows, E, max_steps) float2
+// set to zero: each row's attempts in each segment, (t, h) with h negated
+// where rejected; an attempt a row did not make stays zero. Returns 0 on
+// success, else the CUDA error.
 extern "C" int fused_cde_solve_launch(
     const float* z0, const float* path_ts, const float* path_b, const float* path_c,
     const float* path_d, const float* eval_ts, float dt0,
@@ -193,7 +209,7 @@ extern "C" int fused_cde_solve_launch(
     int n_layers, int act, const float* tab_a, const float* tab_b_sol,
     const float* tab_b_err, const float* tab_c, int stages, int fsal, float expo,
     float rtol, float atol, float safety, float factor_min, float factor_max,
-    int max_steps, float* zs, float* dt_out, int* acc, int* rej, int* inc,
+    int max_steps, float* zs, float* dt_out, int* acc, int* rej, int* inc, float* steps,
     int n_rows, int C, int T, int E, const int* plan, int n_blocks, int smem_bytes,
     float* scratch, unsigned* work, void* stream) {
   FieldParams fp;
@@ -204,8 +220,10 @@ extern "C" int fused_cde_solve_launch(
       !fill_tableau(tp, tab_a, tab_b_sol, tab_b_err, tab_c, stages, fsal, expo))
     return (int)cudaErrorInvalidValue;
   ControlParams cp{rtol, atol, safety, factor_min, factor_max, max_steps};
+  float2* log_out = reinterpret_cast<float2*>(steps);
   void* args[] = {&z0, &path_ts, &path_b, &path_c, &path_d, &eval_ts, &dt0, &fp, &tp, &cp,
-                  &plan, &scratch, &work, &zs, &dt_out, &acc, &rej, &inc, &C, &T, &E};
+                  &plan, &scratch, &work, &zs, &dt_out, &acc, &rej, &inc, &log_out,
+                  &C, &T, &E};
   return (int)launch_grid(fused_cde_solve_kernel, n_blocks, (size_t)smem_bytes,
                           static_cast<cudaStream_t>(stream), args);
 }

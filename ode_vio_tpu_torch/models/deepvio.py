@@ -65,13 +65,22 @@ class DeepVIO(nn.Module):
     def carry_lane_axis(self) -> int:
         return self.Pose_net.carry_lane_axis
 
+    @property
+    def cold_mask(self) -> bool:
+        """Whether the pose core's fresh start is other than a zeroed carry
+        (cde, rde: ``tanh(initial(obs0))``), so that a lane that starts
+        beside carried ones needs the ``cold`` mask."""
+        return getattr(self.Pose_net, "cold_mask", False)
+
     def forward(self, img: torch.Tensor, imu: torch.Tensor, ts: torch.Tensor,
                 hc: Optional[Carry] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                cold: Optional[torch.Tensor] = None):
         """``generator``: the randomness of train-mode dropout and of hard
-        fusion's Gumbel noise."""
+        fusion's Gumbel noise; ``cold`` (B,) bool: the lanes of a carried
+        call that start afresh (:attr:`cold_mask` cores only)."""
         fv = self.Image_net(img, generator)
-        return self.pose_from_visual(fv, imu, ts, hc, generator)
+        return self.pose_from_visual(fv, imu, ts, hc, generator, cold)
 
     def encode(self, img: torch.Tensor, imu: torch.Tensor,
                generator: Optional[torch.Generator] = None):
@@ -80,12 +89,14 @@ class DeepVIO(nn.Module):
 
     def pose_from_visual(self, fv: torch.Tensor, imu: torch.Tensor, ts: torch.Tensor,
                          hc: Optional[Carry] = None,
-                         generator: Optional[torch.Generator] = None):
+                         generator: Optional[torch.Generator] = None,
+                         cold: Optional[torch.Tensor] = None):
         """The forward from visual features ``fv`` computed elsewhere (the
         frozen image encoder's inference graph in the ``frozen_encoder_eval``
         train step): the inertial encoder and the pose core."""
         fi = self.Inertial_net(imu, generator)
-        return self.Pose_net(fv, fi, ts, prev=hc, generator=generator)
+        kw = {} if cold is None else {"cold": torch.as_tensor(cold, device=fi.device)}
+        return self.Pose_net(fv, fi, ts, prev=hc, generator=generator, **kw)
 
 
 def count_parameters(model: nn.Module) -> int:

@@ -13,6 +13,7 @@ options only) or the solver core, and train mode runs the training regime
 through the bounded solve and never K2, as in PoseCDE. ``ModelConfig.
 adjoint`` does not reach this core: JAX's PoseRDE trains through the
 bounded solve whatever it says. Every carry leaf has its lane on axis 0.
+``cold`` marks lanes that start afresh beside a carry, as for PoseCDE.
 """
 
 from __future__ import annotations
@@ -25,13 +26,15 @@ from torch import nn
 from ode_vio_tpu_torch.config import ModelConfig, SolverConfig
 from ode_vio_tpu_torch.models.common import Carry, MLPField, PoseRegressor
 from ode_vio_tpu_torch.models.fusion import FusionModule
-from ode_vio_tpu_torch.models.pose_cde import cde_solver, collapse_prefix, solve_stats
+from ode_vio_tpu_torch.models.pose_cde import (cde_solver, cold_lanes, collapse_prefix,
+                                               solve_stats)
 from ode_vio_tpu_torch.ops.logsig import logsig_dim, logsig_windows
 from ode_vio_tpu_torch.ops.mlp import cde_func_sizes
 
 
 class PoseRDE(nn.Module):
     carry_lane_axis = 0  # z (B, H), or the history dict of (B, ...) leaves
+    cold_mask = True     # forward takes ``cold``, as PoseCDE's
 
     def __init__(self, cfg: ModelConfig, solver: SolverConfig):
         super().__init__()
@@ -53,29 +56,39 @@ class PoseRDE(nn.Module):
 
     def forward(self, fv: torch.Tensor, fi: torch.Tensor, ts: torch.Tensor,
                 prev: Optional[Carry] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                cold: Optional[torch.Tensor] = None):
         """fv (B, S-1, v_f_len), fi (B, S-1, i_f_len), ts (B, S), prev the
-        carry or None. Returns (poses (B, S-1, 6), carry, SolveStats)."""
+        carry or None, ``cold`` (B,) the lanes that start afresh (with a
+        carry, outside training). Returns (poses (B, S-1, 6), carry,
+        SolveStats)."""
         cfg, train = self.cfg, self.training
         x = self.reduction_net(self.fuse(fv, fi, generator))
         ts = ts.float()
         mode = "train" if train else cfg.rde_streaming_mode
         if mode == "reset":
             prev = None
+        if prev is None or train:
+            cold = None
         history = mode == "history"
         ts_eff = ts if history or (prev is not None and not train) else ts - ts[:, :1]
+        if cold is not None and not history:
+            ts_eff = torch.where(cold[:, None], ts - ts[:, :1], ts_eff)
         knots = ts_eff[:, 1:]                                   # (B, S-1)
         obs = torch.cat([knots[..., None], x], dim=-1)          # (B, S-1, d)
         solve = cde_solver(self.cde_func, cfg.cde_hidden_dim, self.sig_dim, "linear",
                            self.solver, cfg.resolved_use_kernels(obs.device), train)
         if history:
-            return self._history_step(obs, knots, prev, solve)
-        z0 = torch.tanh(self.initial(obs[:, 0])) if prev is None else prev
+            return self._history_step(obs, knots, prev, solve, cold)
+        z0 = prev
+        if prev is None or cold is not None:
+            z_init = torch.tanh(self.initial(obs[:, 0]))
+            z0 = z_init if prev is None else cold_lanes(cold, z_init, prev)
         ys, t_new = self._compress(obs, knots)
         zs, stats = solve(z0, t_new, ys, knots)
         return self.regressor(zs), zs[:, -1], solve_stats(stats)
 
-    def _history_step(self, obs, knots, prev, solve):
+    def _history_step(self, obs, knots, prev, solve, cold=None):
         K = self.cfg.rde_history_cap
         B, T, _ = obs.shape
         ys, t_new = self._compress(obs, knots)      # (B, W+1, D), (B, W+1)
@@ -83,11 +96,15 @@ class PoseRDE(nn.Module):
         if K < W + 1:
             raise ValueError(f"rde_history_cap ({K}) must cover one window's "
                              f"{W + 1} compressed knots")
+
+        def fresh():
+            return {"z0": torch.tanh(self.initial(obs[:, 0])),
+                    "y": torch.cat([ys.new_zeros(B, K - (W + 1), D), ys], dim=1),
+                    "t": torch.cat([t_new.new_zeros(B, K - (W + 1)), t_new], dim=1),
+                    "cnt": torch.full((B,), W + 1, dtype=torch.int32, device=obs.device)}
+
         if prev is None:
-            z0 = torch.tanh(self.initial(obs[:, 0]))
-            buf_y = torch.cat([ys.new_zeros(B, K - (W + 1), D), ys], dim=1)
-            buf_t = torch.cat([t_new.new_zeros(B, K - (W + 1)), t_new], dim=1)
-            cnt = torch.full((B,), W + 1, dtype=torch.int32, device=obs.device)
+            z0, buf_y, buf_t, cnt = fresh().values()
         else:
             z0, buf_t, buf_y, cnt = prev["z0"], prev["t"], prev["y"], prev["cnt"]
             # advance z0 over the W outgoing segments (collapsed slots before
@@ -98,6 +115,9 @@ class PoseRDE(nn.Module):
             buf_y = torch.cat([buf_y[:, W:], buf_y[:, -1:] + ys[:, 1:]], dim=1)
             buf_t = torch.cat([buf_t[:, W:], t_new[:, 1:]], dim=1)
             cnt = torch.clamp_max(cnt + W, K)
+            if cold is not None:
+                z0, buf_y, buf_t, cnt = cold_lanes(cold, fresh(), {
+                    "z0": z0, "y": buf_y, "t": buf_t, "cnt": cnt}).values()
         buf_t, buf_y = collapse_prefix(buf_t, cnt), collapse_prefix(buf_y, cnt)
         # evaluate at every buffered knot before the newest window, then at
         # the window's feature times: each sub-solve spans one path segment

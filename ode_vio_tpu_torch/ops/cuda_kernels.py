@@ -154,7 +154,7 @@ def _bind(libs: Dict[str, ctypes.CDLL]) -> None:
     fn.argtypes = [
         p, p, p, p, p, p, f,    # z0, path_ts, path_b, path_c, path_d, eval_ts, dt0
         *field_and_tableau,
-        p, p, p, p, p,          # zs, dt, accepted, rejected, incomplete
+        p, p, p, p, p, p,       # zs, dt, accepted, rejected, incomplete, step log
         i, i, i, i, *grid,      # n_rows, C, T, E
     ]
     fn.restype = ctypes.c_int
@@ -517,10 +517,11 @@ fused_ode_solve.last = None  # (plan, work words) of the latest launch
 def fused_cde_solve_plain(layers: Sequence[Layer], z0, path_ts, path_b, path_c,
                           path_d, eval_ts, *, activation: str, method: str,
                           rtol: float, atol: float, dt0: float, max_steps: int,
-                          safety: float, factor_min: float, factor_max: float):
+                          safety: float, factor_min: float, factor_max: float,
+                          log_steps: bool = False):
     """The kernel's function in plain PyTorch: the port's CDE solve
     (``ops/interpolation.py::cdeint_path``) on the same field, path and
-    controller settings."""
+    controller settings, with the kernel's step log where ``log_steps``."""
     opts = SolverOptions(method=method, rtol=rtol, atol=atol, dt0=dt0,
                          max_steps=max_steps, safety=safety,
                          factor_min=factor_min, factor_max=factor_max)
@@ -529,9 +530,16 @@ def fused_cde_solve_plain(layers: Sequence[Layer], z0, path_ts, path_b, path_c,
     path = InterpolatedPath(path_ts, zeros, path_b,
                             zeros if path_c is None else path_c,
                             zeros if path_d is None else path_d)
+    log = [] if log_steps else None
     zs, dt, stats = cdeint_path(lambda z: apply_cde_func(layers, z, activation, H, C),
-                                z0, path, eval_ts, opts)
-    return (zs, dt, *stats)
+                                z0, path, eval_ts, opts, log=log)
+    if not log_steps:
+        return (zs, dt, *stats)
+    steps = z0.new_zeros(z0.shape[0], eval_ts.shape[1], max_steps, 2)
+    for j, attempts in enumerate(log):
+        if attempts:
+            steps[:, j, :len(attempts)] = torch.stack(attempts, 1)
+    return (zs, dt, *stats, steps)
 
 
 def fused_cde_solve(layers: Sequence[Layer], z0: torch.Tensor, path_ts: torch.Tensor,
@@ -540,7 +548,8 @@ def fused_cde_solve(layers: Sequence[Layer], z0: torch.Tensor, path_ts: torch.Te
                     activation: str = "tanh", method: str = "dopri5",
                     rtol: float = 1e-4, atol: float = 1e-6, dt0: float = 1e-4,
                     max_steps: int = 256, safety: float = 0.9,
-                    factor_min: float = 0.2, factor_max: float = 10.0):
+                    factor_min: float = 0.2, factor_max: float = 10.0,
+                    log_steps: bool = False):
     """Batched neural-CDE solve ``dz = g(z) dX(t)``, ``g(z) =
     tanh(MLP(z)).reshape(H, C)`` (``layers`` H -> ... -> H*C, h-major), for
     each row of ``z0`` (N, H) on its own path, through ``[path_ts[:, 0]] +
@@ -552,9 +561,14 @@ def fused_cde_solve(layers: Sequence[Layer], z0: torch.Tensor, path_ts: torch.Te
 
     Returns ``(zs (N, E, H), dt_final (N,), accepted, rejected,
     incomplete)``, the counts int32 (N,) summed over segments
-    (``incomplete``: segments that ran out of budget). On a CUDA device,
-    more rows than one launch takes (:func:`max_grid_rows`, 2,498 at the
-    flagship cde field on an H100) run as several launches, each counted.
+    (``incomplete``: segments that ran out of budget). With ``log_steps``,
+    also the step log ``(N, E, max_steps, 2)``: each row's attempts in each
+    segment in order, ``(t, h)`` with ``h`` the step taken from ``t``,
+    negated where it was rejected, ``(0, 0)`` past the row's last attempt,
+    so that a replay of the accepted steps redoes the solve. On a CUDA
+    device, more rows than one launch takes (:func:`max_grid_rows`, 2,498
+    at the flagship cde field on an H100) run as several launches, each
+    counted.
     """
     tab = get_tableau(method)
     _check_method(tab, method, activation)
@@ -571,7 +585,7 @@ def fused_cde_solve(layers: Sequence[Layer], z0: torch.Tensor, path_ts: torch.Te
               factor_max=factor_max)
     if device.type == "cpu":
         return fused_cde_solve_plain(layers, z0, path_ts, path_b, path_c, path_d,
-                                     eval_ts, **kw)
+                                     eval_ts, log_steps=log_steps, **kw)
     if device.type != "cuda":
         raise ValueError(f"fused_cde_solve runs on cuda or cpu, not {device}")
     if n == 0 or T < 2 or E < 1 or len(layers) < 2:
@@ -601,17 +615,22 @@ def fused_cde_solve(layers: Sequence[Layer], z0: torch.Tensor, path_ts: torch.Te
         plan, work, grid, _scratch = _grid_launch_args(device, dims, C, n, tab.num_stages)
         zs = torch.empty(n, E, H, dtype=torch.float32, device=device)
         dt_out, acc, rej, inc = _outputs(n, device)
+        steps = (torch.zeros(n, E, max_steps, 2, dtype=torch.float32, device=device)
+                 if log_steps else None)
         err = lib.fused_cde_solve_launch(
             z0.data_ptr(), path_ts.data_ptr(), path_b.data_ptr(), ptr(path_c),
             ptr(path_d), eval_ts.data_ptr(), float(dt0), *field,
             zs.data_ptr(), dt_out.data_ptr(), acc.data_ptr(), rej.data_ptr(),
-            inc.data_ptr(), n, C, T, E, *grid,
+            inc.data_ptr(), ptr(steps), n, C, T, E, *grid,
         )
         if err != 0:
             raise RuntimeError(f"fused_cde_solve kernel launch failed: CUDA error {err}")
         fused_cde_solve.launches += 1
         fused_cde_solve.last = (plan, work)
-        return zs, dt_out, acc, rej, inc
+        if profiling.collecting():
+            # as K1's: the launch's lockstep field evaluations times its rows
+            profiling.count("ode_vio.k2.row_evals", work[3], n)
+        return (zs, dt_out, acc, rej, inc) + ((steps,) if log_steps else ())
 
     rows = max_grid_rows(tuple(dims), *_device_grid(device), tab.num_stages, C)
     return in_row_pieces(launch, n, rows, (z0, path_ts, path_b, path_c, path_d, eval_ts))

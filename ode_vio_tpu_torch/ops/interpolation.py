@@ -19,7 +19,7 @@ weights and every leaf of the path.
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Sequence
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -123,7 +123,8 @@ def cdeint(path: InterpolatedPath, func: Callable[[torch.Tensor], torch.Tensor],
 
 def cdeint_path(func: Callable[[torch.Tensor], torch.Tensor], z0: torch.Tensor,
                 path: InterpolatedPath, eval_ts: torch.Tensor,
-                opts: SolverOptions = SolverOptions(), bounded: bool = False):
+                opts: SolverOptions = SolverOptions(), bounded: bool = False,
+                log: Optional[list] = None):
     """:func:`cdeint` through ``[path.ts[:, 0]] + eval_ts`` (B, E),
     segment by segment: each segment a fresh solve with its own
     ``max_steps`` budget, the step size the previous one returned carried
@@ -133,9 +134,11 @@ def cdeint_path(func: Callable[[torch.Tensor], torch.Tensor], z0: torch.Tensor,
 
     Returns ``(zs (B, E, H), dt_final (B,), Stats)`` with the per-row
     counts summed over segments: the counterpart of ``cdeint_batched``,
-    plus the last step proposal.
+    plus the last step proposal. ``log``: each segment's attempts
+    (``solve_at_dt``).
     """
-    return solve_at_dt(_field(func, path), z0, _segment_ts(path, eval_ts), opts, bounded)
+    return solve_at_dt(_field(func, path), z0, _segment_ts(path, eval_ts), opts, bounded,
+                       log)
 
 
 def cdeint_batched(func, z0, ts, xs, eval_ts, kind: str,

@@ -37,7 +37,7 @@ gradients flow through the accepted RK stages only.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple, Sequence
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -146,7 +146,8 @@ def _error_ratio(err, y0, y1, rtol: float, atol: float) -> torch.Tensor:
 
 def _adaptive_step_body(func, t1, opts: SolverOptions, t, y, f, dt):
     """One controller step on every row. Returns the new
-    ``(t, y, f, dt, accept)``; the caller masks rows that are done."""
+    ``(t, y, f, dt, accept)`` and the step taken; the caller masks rows
+    that are done."""
     tab = opts.tableau
     remaining = torch.clamp_min(t1 - t, 0.0)
     clamped = dt >= remaining
@@ -166,7 +167,7 @@ def _adaptive_step_body(func, t1, opts: SolverOptions, t, y, f, dt):
     a = accept[:, None]
     y_new = torch.where(a, y1, y)
     f_new = torch.where(a, k_last, f) if tab.fsal else f
-    return t_new, y_new, f_new, dt_next, accept
+    return t_new, y_new, f_new, dt_next, accept, dtc
 
 
 def _rows(x, n: int, device) -> torch.Tensor:
@@ -175,9 +176,11 @@ def _rows(x, n: int, device) -> torch.Tensor:
 
 
 def _solve(func: VectorField, y0: torch.Tensor, t0, t1, opts: SolverOptions,
-           dt0, chunk: int, n_chunks: int):
+           dt0, chunk: int, n_chunks: int, log: Optional[list] = None):
     """Masked steps on every row, ``chunk`` at a time, at most ``n_chunks``
-    chunks; the host checks before each chunk whether any row is active."""
+    chunks; the host checks before each chunk whether any row is active.
+    ``log`` gets every attempt: (N, 2) (t, h) per row, h negated where the
+    step was rejected, (0, 0) where the row made none."""
     tab = opts.tableau
     if not tab.adaptive_capable:
         raise ValueError(f"the adaptive solve needs a method with an error "
@@ -204,8 +207,11 @@ def _solve(func: VectorField, y0: torch.Tensor, t0, t1, opts: SolverOptions,
         for i in range(chunk):
             if i:
                 on = active()
-            t_n, y_n, f_n, dt_n, accept = _adaptive_step_body(
+            t_n, y_n, f_n, dt_n, accept, dtc = _adaptive_step_body(
                 func, t1, opts, t, y, f, dt)
+            if log is not None:
+                h = torch.where(accept, dtc, -dtc).detach()
+                log.append(torch.stack([torch.where(on, t, 0.0), torch.where(on, h, 0.0)], -1))
             a = on[:, None]
             t = torch.where(on, t_n, t)
             y = torch.where(a, y_n, y)
@@ -275,7 +281,8 @@ def _solve_fixed(func: VectorField, y0: torch.Tensor, t0, t1, opts: SolverOption
 
 
 def solve_ivp_dt(func: VectorField, y0: torch.Tensor, t0, t1,
-                 opts: SolverOptions = SolverOptions(), dt0=None):
+                 opts: SolverOptions = SolverOptions(), dt0=None,
+                 log: Optional[list] = None):
     """Integrate ``dy/dt = func(t, y)`` for every row of ``y0`` (N, F)
     from ``t0`` to ``t1 >= t0`` ((N,) each), each row with its own step
     size, starting from ``dt0`` (scalar or (N,); default ``opts.dt0``).
@@ -285,7 +292,8 @@ def solve_ivp_dt(func: VectorField, y0: torch.Tensor, t0, t1,
     loop ends at the first step where no row is active. Returns ``(y1,
     dt_final, stats)``: ``dt_final`` is the controller's next proposal,
     which warm-starts the next interval's solve. Options that are not
-    adaptive (or an Adams method) take the fixed-step solve instead.
+    adaptive (or an Adams method) take the fixed-step solve instead. An
+    adaptive solve appends its attempts to ``log`` (:func:`_solve`).
     """
     if opts.unroll_mode == "adjoint":
         raise ValueError("use solve_ivp_adjoint() for the continuous-adjoint mode "
@@ -293,7 +301,7 @@ def solve_ivp_dt(func: VectorField, y0: torch.Tensor, t0, t1,
     if not opts.adaptive:
         return _solve_fixed(func, y0, t0, t1, opts)
     # a row active at step k has taken k steps: max_steps + 1 checks end it
-    return _solve(func, y0, t0, t1, opts, dt0, 1, opts.max_steps + 1)
+    return _solve(func, y0, t0, t1, opts, dt0, 1, opts.max_steps + 1, log)
 
 
 def solve_ivp(func: VectorField, y0: torch.Tensor, t0, t1,
@@ -319,20 +327,28 @@ def solve_ivp_batched_dt(func: VectorField, y0: torch.Tensor, t0, t1,
 
 
 def solve_at_dt(func: VectorField, y0: torch.Tensor, ts: torch.Tensor,
-                opts: SolverOptions = SolverOptions(), bounded: bool = False):
+                opts: SolverOptions = SolverOptions(), bounded: bool = False,
+                log: Optional[list] = None):
     """Integrate every row of ``y0`` (N, F) through its knots ``ts``
     (N, T), ``y0`` at ``ts[:, 0]``: one solve per segment, each with its
     own ``max_steps`` budget, the step size carried from one segment to the
     next (``opts.dt0`` at the start). ``bounded``: each segment is the
     training solve (:func:`solve_ivp_batched_dt`), else the inference solve.
     Returns ``(ys (N, T-1, F), dt_final (N,), Stats)`` with the per-row
-    counts summed over segments."""
+    counts summed over segments. ``log`` (the inference solve only) gets
+    one list of attempts a segment (:func:`_solve`)."""
+    if bounded and log is not None:
+        raise ValueError("the training solve's attempts are not logged")
     y = y0
     dt = torch.full((y0.shape[0],), opts.dt0, dtype=torch.float32, device=y0.device)
     solve = solve_ivp_batched_dt if bounded else solve_ivp_dt
     ys, acc, rej, inc = [], 0, 0, 0
     for j in range(ts.shape[1] - 1):
-        y, dt, st = solve(func, y, ts[:, j], ts[:, j + 1], opts, dt)
+        kw = {}
+        if log is not None:
+            log.append([])
+            kw["log"] = log[-1]
+        y, dt, st = solve(func, y, ts[:, j], ts[:, j + 1], opts, dt, **kw)
         ys.append(y)
         acc, rej, inc = acc + st.accepted, rej + st.rejected, inc + st.incomplete
     return torch.stack(ys, dim=1), dt, Stats(acc, rej, inc)

@@ -28,7 +28,8 @@ def split_lanes(infer: Callable, devices: Sequence) -> Callable:
     poses come back on the CPU in lane order, and the carry is the list of
     the replicas' carries. The replicas count their truncated solves with
     ``infer``'s own (``incomplete()``; ``incomplete_by_lane`` is theirs in
-    lane order). ``img``, ``imu`` and ``ts`` are each a tensor of all the
+    lane order); ``active`` and ``cold`` masks are cut like the lanes.
+    ``img``, ``imu`` and ``ts`` are each a tensor of all the
     lanes, which the call copies block by block to the replicas' devices,
     or a list of the blocks already on them, taken as they lie (the
     serving engine's resident lane batch). While a profiler collects, each
@@ -41,7 +42,7 @@ def split_lanes(infer: Callable, devices: Sequence) -> Callable:
                 for r, d in enumerate(devices)]
     n = len(replicas)
 
-    def split(img, imu, ts, carry=None, active=None):
+    def split(img, imu, ts, carry=None, active=None, cold=None):
         placed = isinstance(img, (list, tuple))
         if placed and len(img) != n:
             raise ValueError(f"{len(img)} blocks of lanes for {n} replicas")
@@ -60,7 +61,8 @@ def split_lanes(infer: Callable, devices: Sequence) -> Callable:
             with span("ode_vio.lanes.forward"):
                 p, c = rep(*xs, None if carry is None else carry[r],
                            None if active is None else np.asarray(active)[rows],
-                           lanes=(r * per, B))
+                           lanes=(r * per, B),
+                           cold=None if cold is None else np.asarray(cold)[rows])
             poses.append(p)
             carries.append(c)
         with span("ode_vio.lanes.readback"):

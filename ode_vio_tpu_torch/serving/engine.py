@@ -22,9 +22,13 @@ Sessions are lanes of one fixed-size batch of ``max_sessions``:
   run that window and their carry is restored afterwards, so an idle
   session never advances. A window shaped unlike the slots is refused.
 * A fresh session gets a zeroed lane carry and its clock re-based to 0.
-  A session that opens after the engine's first step therefore starts
-  from a zero state, for cde/rde z0 = 0 and not ``tanh(initial(obs0))``,
-  as in the JAX engine.
+  Its first window starts cold, as the model does without a carry: for
+  ode-rnn, rnn, cfc and ltc that is the zeroed carry itself; for cde/rde
+  (``DeepVIO.cold_mask``) a step that serves sessions' first windows
+  beside carried lanes passes those lanes as a ``cold`` mask, so they
+  start from ``tanh(initial(obs0))`` (history mode: a fresh buffer and
+  count) and not from z0 = 0, unlike the JAX engine, whose sessions that
+  open after its first step start from zeros.
 * Truncated-solve counts accumulate only for lanes that served a real
   window.
 * While a profiler collects, a step is the span ``ode_vio.serve.step``
@@ -98,6 +102,7 @@ class StreamingEngine:
                              f"{len(self._devices)} devices")
         self._per = self.N // len(self._devices)
         self._axis = model.carry_lane_axis
+        self._cold_mask = model.cold_mask
         self._infer = split_lanes(make_infer_fn(model, state_dict, fold_bn=fold_bn,
                                                 device=self._devices[0]), self._devices)
         self._free = list(range(self.N - 1, -1, -1))
@@ -219,11 +224,18 @@ class StreamingEngine:
                 raise ValueError(f"session {sid}'s window has shapes (imgs, imus, ts) {got}; "
                                  f"the lane batch's slots are {want}")
         with span("ode_vio.serve.step"):
+            cold = {}
+            if self._cold_mask and self._carry is not None:
+                # sessions serving their first window start afresh beside
+                # the carried lanes (the first step has no carry: all do)
+                fresh = np.array([ln in windows and ln in self._fresh for ln in range(self.N)])
+                if fresh.any():
+                    cold["cold"] = fresh
             with span("ode_vio.serve.gather"):
                 staged = {lane: self._lane_window(lane, w) for lane, w in windows.items()}
             self._stage(staged)
             active = np.array([ln in windows for ln in range(self.N)])
-            poses, carry = self._infer(*self._batch, self._carry, active=active)
+            poses, carry = self._infer(*self._batch, self._carry, active=active, **cold)
             with span("ode_vio.serve.carry"):
                 # lanes that did not really start yet stay zeroed
                 old = (self._carry if self._carry is not None

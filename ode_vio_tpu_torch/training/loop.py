@@ -452,8 +452,10 @@ def make_infer_fn(model: DeepVIO, state_dict: Optional[Dict[str, torch.Tensor]] 
     with 0 on every call, as the JAX callable applies ``PRNGKey(0)``;
     ``lanes=(start, total)`` says that the call's lanes are
     ``start..start+B`` of ``total`` (``parallel/lanes.py::split_lanes``),
-    and the noise is drawn for all ``total`` and sliced. ``infer.device`` is the device
-    its inputs must be on.
+    and the noise is drawn for all ``total`` and sliced. ``cold``, a
+    boolean lane mask given with a carry, starts those lanes afresh
+    (``DeepVIO.cold_mask`` cores). ``infer.device`` is the device its
+    inputs must be on.
     """
     device = resolve_device(device)
     cfg = model.cfg
@@ -484,13 +486,13 @@ def _infer_fn(cfg, solver, cde_solver, folded: Dict[str, torch.Tensor], fold: Ca
     hard = cfg.fuse_method == "hard"
 
     @torch.inference_mode()
-    def infer(img, imu, ts, carry=None, active=None, lanes=None):
+    def infer(img, imu, ts, carry=None, active=None, lanes=None, cold=None):
         gen = None
         if hard:
             gen = torch.Generator(device).manual_seed(0)
             if lanes is not None:
                 gen = LaneDraws(gen, *lanes)
-        poses, carry, stats = net(img, imu, ts, carry, generator=gen)
+        poses, carry, stats = net(img, imu, ts, carry, generator=gen, cold=cold)
         inc = stats.incomplete
         if active is not None:
             inc = inc * torch.as_tensor(np.asarray(active), device=device).to(inc.dtype)

@@ -37,6 +37,7 @@ from ode_vio_tpu_torch.ops.mlp import apply_cde_func
 from ode_vio_tpu_torch.ops.solvers import SolverOptions
 from ode_vio_tpu_torch.serving import StreamingEngine
 
+from k2_step_log import assert_step_log_holds
 from torch_port_helpers import S, configs, jax_model, one_torch_thread, window  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -226,6 +227,22 @@ def test_k2_wrapper_equals_solver_core_and_keeps_dt_over_empty_segments():
     assert int(out[2][1]) == int(out[3][1]) == int(out[4][1]) == 0
 
 
+@pytest.mark.parametrize("name,prob,kind,kw,counts", K2_CASES, ids=[c[0] for c in K2_CASES])
+def test_k2_step_log_accounts_for_every_attempt(name, prob, kind, kw, counts):
+    """K2's plain version with its step log: the same bits as without, and
+    a log that holds (``k2_step_log.py``)."""
+    params, z0, ts, xs, ev = cde_problem(**prob)
+    layers = [(t(p["w"]), t(p["b"])) for p in params]
+    path = interpolation.make_path(t(ts), t(xs), kind)
+    cubic = kind == "cubic"
+    args = (layers, t(z0), path.ts, path.b, path.c if cubic else None,
+            path.d if cubic else None, t(ev))
+    out = cuda_kernels.fused_cde_solve(*args, activation="tanh", **kw)
+    logged = cuda_kernels.fused_cde_solve(*args, activation="tanh", log_steps=True, **kw)
+    assert logged[-1].shape == (z0.shape[0], ev.shape[1], kw["max_steps"], 2)
+    assert_step_log_holds(out, logged, path.ts, t(ev))
+
+
 # ---------------------------------------------------------------------------
 # log-signatures
 # ---------------------------------------------------------------------------
@@ -387,14 +404,33 @@ SCHEDULE = [
 ]
 
 
+# the late joiner of SCHEDULE served cold by JAX engines, which start a
+# session cold only in their first step: alone, and beside a session that
+# never submits (on SCHEDULE's lane 1)
+B_ALONE = [(["b"], {"b": SCHEDULE[1][1]["b"]}), ([], {"b": SCHEDULE[2][1]["b"]}),
+           ([], {"b": SCHEDULE[3][1]["b"]})]
+LATE_COLD = [(["x"] + B_ALONE[0][0], B_ALONE[0][1])] + B_ALONE[1:]
+
+
 def test_engine_cde_carry_matches_jax(cde_model):
     """Carry mode against the JAX engine: a cold start, carried windows, a
-    late joiner that starts from a zeroed lane (z0 = 0, as in the JAX
-    engine) and an idle replay."""
+    late joiner and an idle replay. The port's late joiner starts cold,
+    from ``tanh(initial(obs0))`` (the JAX engine starts it from z0 = 0), so
+    its windows are held against a JAX engine that serves it alone from a
+    cold start (``B_ALONE``). Each row's solve takes its own steps, so the
+    lanes beside it move none of them: the same windows beside an idle lane
+    (``LATE_COLD``) give the same poses to rounding (1.3e-5 of their scale at
+    most; the port's carried windows are held to 3e-2)."""
     _, tc = core_configs("cde")
     jmodel, cde_variables = cde_model
     eng_j = JaxEngine(jmodel, cde_variables, max_sessions=2)
     ref, _, _ = serve(eng_j, SCHEDULE)
+    eng_alone = JaxEngine(jmodel, cde_variables, max_sessions=1)
+    ref["b"] = serve(eng_alone, B_ALONE)[0]["b"]
+    eng_late = JaxEngine(jmodel, cde_variables, max_sessions=2)
+    for got, want in zip(serve(eng_late, LATE_COLD)[0]["b"], ref["b"]):
+        got, want = np.asarray(got), np.asarray(want)
+        assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
     model = DeepVIO(tc.model, tc.solver, tc.cde_solver_cfg)
     eng = StreamingEngine(model, from_jax_variables(cde_variables, tc.model),
                           max_sessions=2, device="cpu")
@@ -404,7 +440,9 @@ def test_engine_cde_carry_matches_jax(cde_model):
             assert got.shape == (S - 1, 6) and np.isfinite(got).all()
             rt, at = (2e-4, 2e-5) if w == 0 else (3e-2, 5e-3)
             np.testing.assert_allclose(got, np.asarray(want), rtol=rt, atol=at)
-    np.testing.assert_array_equal(eng.incomplete_by_lane(), np.asarray(eng_j.incomplete_by_lane()))
+    want_inc = [np.asarray(eng_j.incomplete_by_lane())[0],
+                np.asarray(eng_alone.incomplete_by_lane())[0]]
+    np.testing.assert_array_equal(eng.incomplete_by_lane(), want_inc)
 
 
 def test_engine_history_lanes(cde_model):

@@ -142,6 +142,71 @@ def test_k1_row_evals_counter_on_gpu():
     assert counts[3].value == evals[2] * 400
 
 
+@pytest.mark.gpu
+def test_k2_row_evals_counter_on_gpu():
+    """While a profiler collects, each K2 launch adds its lockstep field
+    evaluations (work word 3) times its rows to ``ode_vio.k2.row_evals``;
+    with none collecting it adds nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from ode_vio_tpu_torch.config import ModelConfig, SolverConfig
+    from ode_vio_tpu_torch.models.pose_cde import PoseCDE
+    from ode_vio_tpu_torch.utils import profiling
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ModelConfig(model_type="cde", v_f_len=32, i_f_len=16, cde_hidden_dim=16,
+                      use_kernels=True)
+    torch.manual_seed(5)
+    core = PoseCDE(cfg, SolverConfig(rtol=1e-4, atol=1e-6, max_steps=256)).cuda().eval()
+    g = torch.Generator().manual_seed(6)
+
+    def window(n):
+        fv, fi = 0.3 * torch.randn(n, 4, 32, generator=g), 0.3 * torch.randn(n, 4, 16, generator=g)
+        ts = torch.cumsum(0.08 + 0.05 * torch.rand(n, 5, generator=g), 1)
+        with torch.no_grad():
+            core(fv.cuda(), fi.cuda(), ts.cuda())
+        return int(cuda_kernels.fused_cde_solve.last[1][3])   # the latest launch's
+
+    profiling.clear()
+    window(3)
+    assert profiling.record()["counts"] == []
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        evals = [window(3), window(8)]
+    counts = profiling.record()["counts"]
+    profiling.clear()
+    assert [c.name for c in counts] == ["ode_vio.k2.row_evals"] * 2
+    assert evals[0] > 0 and [c.value for c in counts] == [evals[0] * 3, evals[1] * 8]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("max_steps", [256, 6])
+def test_k2_step_log_on_gpu(max_steps):
+    """K2 with its step log at the flagship cde field's widths (H 128, C
+    129), with rejected steps and, at 6 attempts a segment, truncated
+    segments: the same bits as without the log, and a log that holds
+    (``k2_step_log.py``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from k2_step_log import assert_step_log_holds
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(16)
+    n, T, H, C = 5, 8, 128, 129
+    sizes = [H, H, H, H, H * C]
+    layers = [((torch.randn(sizes[i + 1], sizes[i], generator=g) * (2.0 / sizes[i]) ** 0.5)
+               .cuda(), torch.zeros(sizes[i + 1]).cuda()) for i in range(4)]
+    ts = torch.cumsum(0.05 + 0.25 * torch.rand(n, T, generator=g), 1).cuda()
+    slopes = (0.3 * torch.randn(n, T - 1, C, generator=g)).cuda()
+    z0 = (0.3 * torch.randn(n, H, generator=g)).cuda()
+    args = (layers, z0, ts, slopes, None, None, ts)
+    kw = dict(rtol=1e-4, atol=1e-6, dt0=1e-2, max_steps=max_steps)
+    out = cuda_kernels.fused_cde_solve(*args, **kw)
+    logged = cuda_kernels.fused_cde_solve(*args, log_steps=True, **kw)
+    assert logged[-1].shape == (n, T, max_steps, 2)
+    assert int(out[3].sum()) > 0 and (int(out[4].sum()) > 0) == (max_steps == 6)
+    assert_step_log_holds(out, logged, ts, ts)
+
+
 CDE_CASE_NAMES = ("main", "cubic", "history_prefix", "rde_off_knots", "n5_ragged", "rejects",
                   "budget", "history_c54", "history_c24", "advance_collapsed", "advance_full",
                   "n1", "n32")

@@ -1,7 +1,7 @@
 """The program's own spans and counters (``utils/profiling.py``: ``span``,
 ``count``, ``record``): off without a profiler, nested and on the trace's
-clock with one, and in place in the serving engine and the evaluator
-without changing a bit of what they compute."""
+clock with one, and in place in the serving engine, the cde core and the
+evaluator without changing a bit of what they compute."""
 
 import json
 
@@ -9,10 +9,11 @@ import numpy as np
 import pytest
 import torch
 
-from ode_vio_tpu_torch.config import ModelConfig
+from ode_vio_tpu_torch.config import ModelConfig, SolverConfig
 from ode_vio_tpu_torch.data.evaluation import KittiEvaluator
 from ode_vio_tpu_torch.data.synthetic import make_kitti_tree
 from ode_vio_tpu_torch.models.deepvio import DeepVIO
+from ode_vio_tpu_torch.models.pose_cde import PoseCDE
 from ode_vio_tpu_torch.serving.engine import StreamingEngine
 from ode_vio_tpu_torch.utils import profiling
 
@@ -168,3 +169,40 @@ def test_eval_spans_hold_the_decode_wait(tree, batched):
     waited = sum(s.t1 - s.t0 for s in spans if s.name == "ode_vio.eval.decode_wait")
     assert ev.timing["decode_wait_s"] > 0
     assert waited == pytest.approx(ev.timing["decode_wait_s"], rel=0.01)
+
+
+@pytest.mark.parametrize("mode", ["carry", "history"])
+def test_cde_spans_leave_every_bit(mode):
+    """PoseCDE over two windows: ``ode_vio.cde.path`` then
+    ``ode_vio.cde.solve`` each window, and in history mode
+    ``ode_vio.cde.evict`` before the carried window's solve; poses and carry
+    bit for bit with the profiler on and off."""
+    cfg = ModelConfig(model_type="cde", v_f_len=16, i_f_len=8, cde_hidden_dim=8,
+                      cde_streaming_mode=mode, cde_history_cap=8, use_kernels=False)
+    torch.manual_seed(3)
+    core = PoseCDE(cfg, SolverConfig(rtol=1e-3, atol=1e-6, max_steps=64)).eval()
+    g = torch.Generator().manual_seed(4)
+    wins = [(0.3 * torch.randn(2, 3, 16, generator=g), 0.3 * torch.randn(2, 3, 8, generator=g),
+             k + torch.cumsum(0.08 + 0.05 * torch.rand(2, 4, generator=g), 1)) for k in range(2)]
+
+    def run():
+        carry, out = None, []
+        with torch.no_grad():
+            for fv, fi, ts in wins:
+                poses, carry, _ = core(fv, fi, ts, prev=carry)
+                out.append((poses, carry))
+        return out
+
+    plain = run()
+    with profiler():
+        traced = run()
+    names = [sp.name for sp in profiling.record()["spans"]]
+    want = ["ode_vio.cde.path", "ode_vio.cde.solve"] * 2
+    if mode == "history":
+        want.insert(3, "ode_vio.cde.evict")
+    assert names == want
+    for (a, ca), (b, cb) in zip(plain, traced):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+        for x, y in zip(ca.values() if mode == "history" else [ca],
+                        cb.values() if mode == "history" else [cb]):
+            torch.testing.assert_close(x, y, rtol=0, atol=0)
