@@ -75,7 +75,8 @@ Phases, one line each, any failure ends the run with a non-zero exit:
           finite metrics
   serve_cli  cli.serve on one sequence, then on the three as sessions: both
           JSON reports printed as they come, the JAX package's report keys,
-          p50 under 1,000 ms, K1 10 launches a step (warm-up included)
+          p50 under 1,000 ms, K1 10 launches a step, and 10 a forward of
+          the warm-up (one cold forward an encoder bucket, one carried)
   train_cli  cli.train on the flagship's train configuration (B=16, frozen
           encoder, frame dropout 0.3 +- 0.1, eval dropout 0.3, K3 on the
           trunk) over the tree's sequences 05 and 07, evaluated on 10 after
@@ -185,8 +186,9 @@ Phases, one line each, any failure ends the run with a non-zero exit:
           for bit; K3 9 a step a rank, K1 10 a window step of rank 0's
           evaluation. eval_mesh: eval_runs of the three sequences twice (6
           lanes) and StreamingEngine with 4 sessions over two replicas on
-          the card, in bf16 and float32, each lane against the unsplit run
-          within 1e-3 / 1e-5, K1 10 a window step a replica; the cde model
+          the card, in bf16 and float32, each eval lane against the
+          unsplit run and each session against an engine of its block's
+          lanes within 1e-3 / 1e-5, K1 10 a window step a replica; the cde model
           on 05 twice split over the replicas, K2 once a window a replica
   entry   ode_vio_tpu_torch/entry.py::entry(): the flagship forward (seed-0
           weights) on its batch-1 example, K1 10 launches, finite poses
@@ -256,7 +258,8 @@ from ode_vio_tpu_torch.ops.mlp import cde_func_sizes, init_mlp, ode_func_sizes
 from ode_vio_tpu_torch.ops.solvers import get_tableau, odeint
 from ode_vio_tpu_torch.serving import StreamingEngine
 from ode_vio_tpu_torch.training.checkpoint import CheckpointManager
-from ode_vio_tpu_torch.training.loop import create_train_state, make_infer_fn, make_train_step
+from ode_vio_tpu_torch.training.loop import (create_train_state, encoder_bucket, make_infer_fn,
+                                              make_train_step)
 from ode_vio_tpu_torch.utils import geometry, profiling
 
 SEED = 0
@@ -729,15 +732,20 @@ def same_carry(a, b) -> bool:
     return torch.equal(a, b)
 
 
-def serve(engine: StreamingEngine, wins, expected=None):
-    """Serves SCHEDULE. Returns the poses, the step times and the (K1, K2)
-    launches of each step, which must equal ``expected`` where given."""
+def serve(engine: StreamingEngine, wins, expected=None, sessions=None):
+    """Serves SCHEDULE, or its ``sessions`` alone where given (a step that
+    serves none of them runs nothing). Returns the poses, the step times
+    and the (K1, K2) launches of each step, which must equal ``expected``
+    where given."""
     k1, k2 = cuda_kernels.fused_ode_solve, cuda_kernels.fused_cde_solve
+    keep = set(wins if sessions is None else sessions)
     sids, nxt, poses, lat, launches = {}, {s: 0 for s in wins}, [], [], []
     for w, (opens, served) in enumerate(SCHEDULE):
+        opens, served = [s for s in opens if s in keep], [s for s in served if s in keep]
         for s in opens:
             sids[s] = engine.open_session()
-        before_idle = engine.hidden(sids[IDLE[1]]) if w == IDLE[0] else None
+        before_idle = (engine.hidden(sids[IDLE[1]]) if w == IDLE[0] and IDLE[1] in keep
+                       else None)
         batch = {sids[s]: wins[s][nxt[s]] for s in served}
         for s in served:
             nxt[s] += 1
@@ -1473,8 +1481,11 @@ def serve_cli(dev, work: Path, root, pth: Path) -> dict:
                             timing=timing)
         launches[name] = cuda_kernels.fused_ode_solve.launches
         steps = report["windows"] if len(seqs) == 1 else report["steps"]
-        # the warm-up runs the cold-start and the carried forward once each
-        check_launches(f"{name} K1", launches[name], (cfg.model.seq_len - 1) * (steps + 2))
+        # the warm-up runs the cold-start forward once at each encoder
+        # bucket of the engine's lanes (a lane a sequence) and the carried
+        # forward once
+        warm = len({encoder_bucket(k, len(seqs)) for k in range(1, len(seqs) + 1)}) + 1
+        check_launches(f"{name} K1", launches[name], (cfg.model.seq_len - 1) * (steps + warm))
         if set(report) - {"solver_incomplete"} != keys - {"solver_incomplete"} or (
                 len(seqs) > 1 and set(report) != keys):
             raise AssertionError(f"{name}: report keys {sorted(report)}")
@@ -2897,32 +2908,50 @@ def lane_gap(a: list, b: list) -> float:
 
 
 def serve_mesh(dev, cfg, devices) -> tuple:
-    """StreamingEngine(max_sessions=4) over ``devices`` against one device
-    on SCHEDULE's seeded windows: the split engine's launches (K1 10 a
-    step per replica), per-session poses and each session's gap."""
+    """StreamingEngine(max_sessions=4) over ``devices`` on SCHEDULE's
+    seeded windows against engines on one device: one per block of the
+    split engine's lanes, serving that block's sessions (sessions take
+    lanes in order, so session s sits in block s // lanes a block), which
+    runs the encoders and the pose core at the split engine's batch sizes;
+    and one of all four lanes, whose other batch sizes round otherwise.
+    Returns the split engine's launches (K1 10 a step per replica), each
+    session's gap to its block's engine and to the four-lane one, and the
+    split and four-lane engines' step times in ms."""
     model = create_model(cfg, seed=SEED, device=dev)
     wins = make_windows(cfg, np.random.default_rng(SEED), len(SCHEDULE))
+    per = SESSIONS // len(devices)
+    runs = {"one": (SESSIONS, None, None), "split": (SESSIONS, devices, None),
+            **{f"block{r}": (per, None, range(r * per, (r + 1) * per))
+               for r in range(len(devices))}}
     out = {}
-    for name, devs in (("one", None), ("split", devices)):
-        engine = StreamingEngine(model, max_sessions=SESSIONS, fold_bn=True, device=dev,
+    for name, (lanes, devs, sessions) in runs.items():
+        engine = StreamingEngine(model, max_sessions=lanes, fold_bn=True, device=dev,
                                  devices=devs)
         engine.warmup(wins[0][0])
         per_step = (cfg.model.seq_len - 1) * (1 if devs is None else len(devs))
         cuda_kernels.reset_launch_counts()      # this path's run starts here
-        poses, lat, _ = serve(engine, wins, [(per_step, 0)] * len(SCHEDULE))
+        expected = None if sessions else [(per_step, 0)] * len(SCHEDULE)
+        poses, lat, _ = serve(engine, wins, expected, sessions)
         out[name] = (poses, lat, cuda_kernels.fused_ode_solve.launches)
-    gap = max(float(np.abs(a[s] - b[s]).max()) for a, b in zip(out["one"][0], out["split"][0])
-              for s in a)
-    return out["split"][2], gap, [x * 1e3 for x in out["split"][1]], [
-        x * 1e3 for x in out["one"][1]]
+
+    def gap(ref) -> float:
+        return max(float(np.abs(a[s] - b[s]).max()) for a, b in zip(ref, out["split"][0])
+                   for s in a)
+
+    block_gap = max(gap(out[f"block{r}"][0]) for r in range(len(devices)))
+    return (out["split"][2], block_gap, gap(out["one"][0]),
+            [x * 1e3 for x in out["split"][1]], [x * 1e3 for x in out["one"][1]])
 
 
 def eval_mesh(dev, root) -> dict:
     """Eval lanes and serving sessions split over two replicas sharing the
     card, in bf16 and in float32: eval_runs of the three sequences twice
-    (6 lanes, 3 a replica) and StreamingEngine with 4 sessions, each lane
-    against the unsplit run within MESH_POSE_ATOL; K1 10 a window step per
-    replica. Then the cde model's eval of sequence 05 twice (a lane a
+    (6 lanes, 3 a replica), each lane against the unsplit run within
+    MESH_POSE_ATOL, and StreamingEngine with 4 sessions, each session
+    against an engine of its block's lanes alone within MESH_POSE_ATOL
+    (its gap to the four-lane engine is printed and not held: the serving
+    encoders run the submitted lanes at their own batch sizes, and bf16
+    rounds otherwise at other sizes); K1 10 a window step per replica. Then the cde model's eval of sequence 05 twice (a lane a
     replica, K2 once a window step per replica) against the two runs
     unsplit one at a time, which is what each replica computes, within
     MESH_POSE_ATOL; its gap to the unsplit run of both lanes in one call
@@ -2943,14 +2972,16 @@ def eval_mesh(dev, root) -> dict:
                            name=f"eval_mesh_{dtype}")
         k1_eval += split["k1"]
         gap = lane_gap(one.pop("poses"), split.pop("poses"))
-        launches, serve_gap, split_ms, one_ms = serve_mesh(dev, cfg, devices)
+        launches, serve_gap, four_gap, split_ms, one_ms = serve_mesh(dev, cfg, devices)
         k1_serve += launches
         report[dtype] = {"eval_split": split, "eval_one_device": one, "eval_lane_gap": gap,
                          "serve_launches": launches, "serve_session_gap": serve_gap,
+                         "serve_session_gap_to_four_lanes": four_gap,
                          "serve_step_ms_split": split_ms, "serve_step_ms_one": one_ms}
         if gap > MESH_POSE_ATOL[dtype] or serve_gap > MESH_POSE_ATOL[dtype]:
             raise AssertionError(f"eval_mesh {dtype}: split against unsplit: eval {gap}, "
-                                 f"serve {serve_gap} (limit {MESH_POSE_ATOL[dtype]})")
+                                 f"serve {serve_gap} against its block's engine "
+                                 f"(limit {MESH_POSE_ATOL[dtype]})")
         del model
         torch.cuda.empty_cache()
     cfg = cde_config()

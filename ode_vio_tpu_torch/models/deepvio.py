@@ -94,7 +94,15 @@ class DeepVIO(nn.Module):
         """The forward from visual features ``fv`` computed elsewhere (the
         frozen image encoder's inference graph in the ``frozen_encoder_eval``
         train step): the inertial encoder and the pose core."""
-        fi = self.Inertial_net(imu, generator)
+        return self.pose_from_features(fv, self.Inertial_net(imu, generator), ts, hc,
+                                       generator, cold)
+
+    def pose_from_features(self, fv: torch.Tensor, fi: torch.Tensor, ts: torch.Tensor,
+                           hc: Optional[Carry] = None,
+                           generator: Optional[torch.Generator] = None,
+                           cold: Optional[torch.Tensor] = None):
+        """The pose core alone, from visual and inertial features computed
+        elsewhere (the serving engine's feature cache of its lanes)."""
         kw = {} if cold is None else {"cold": torch.as_tensor(cold, device=fi.device)}
         return self.Pose_net(fv, fi, ts, prev=hc, generator=generator, **kw)
 

@@ -35,12 +35,21 @@ def split_lanes(infer: Callable, devices: Sequence) -> Callable:
     serving engine's resident lane batch). While a profiler collects, each
     replica's copy of its block is the span ``ode_vio.lanes.h2d`` and its
     call ``ode_vio.lanes.forward``; the poses' copy to the host is
-    ``ode_vio.lanes.readback``."""
+    ``ode_vio.lanes.readback``.
+
+    ``split.feature_cache(img, imu, lanes)`` binds the serving engine's
+    feature cache: per replica, (visual, inertial) over its block of
+    ``lanes`` lanes, every row at the features of the one window ``img``,
+    ``imu`` (no lane axis) encoded alone on the replica. From then on each
+    replica runs the encoders over its ``active`` lanes alone and the pose
+    core on its block of the cache (``infer``'s ``features``). It returns
+    the cache and the window's features, one pair of each per replica."""
     devices = [resolve_device(d) for d in devices]
     # the first block runs on ``infer`` itself where it lies on its device
     replicas = [infer if r == 0 and d == infer.device else infer.replicate(d)
                 for r, d in enumerate(devices)]
     n = len(replicas)
+    features = None
 
     def split(img, imu, ts, carry=None, active=None, cold=None):
         placed = isinstance(img, (list, tuple))
@@ -62,7 +71,8 @@ def split_lanes(infer: Callable, devices: Sequence) -> Callable:
                 p, c = rep(*xs, None if carry is None else carry[r],
                            None if active is None else np.asarray(active)[rows],
                            lanes=(r * per, B),
-                           cold=None if cold is None else np.asarray(cold)[rows])
+                           cold=None if cold is None else np.asarray(cold)[rows],
+                           features=None if features is None else features[r])
             poses.append(p)
             carries.append(c)
         with span("ode_vio.lanes.readback"):
@@ -76,9 +86,16 @@ def split_lanes(infer: Callable, devices: Sequence) -> Callable:
         for rep in replicas:
             rep.set_variables(sd)
 
+    def feature_cache(img, imu, lanes: int):
+        nonlocal features
+        one = [tuple(f[0] for f in rep.encode(img[None], imu[None])) for rep in replicas]
+        features = [tuple(f.expand(lanes, *f.shape).clone() for f in fs) for fs in one]
+        return features, one
+
     split.incomplete = infer.incomplete
     split.incomplete_by_lane = incomplete_by_lane
     split.reset_incomplete = infer.reset_incomplete
     split.set_variables = set_variables
+    split.feature_cache = feature_cache
     split.device = None
     return split

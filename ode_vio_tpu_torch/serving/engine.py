@@ -18,9 +18,21 @@ Sessions are lanes of one fixed-size batch of ``max_sessions``:
   slot and from there to the lane's device slot without blocking (on a
   CPU device straight into the lane's slot). An idle lane's slot holds
   what the lane replays: its last window, or the prototype before its
-  first window, after ``close_session`` and after ``warmup``. Idle lanes
-  run that window and their carry is restored afterwards, so an idle
-  session never advances. A window shaped unlike the slots is refused.
+  first window, after ``close_session`` and after ``warmup``. A window
+  shaped unlike the slots is refused.
+* Beside the lane batch each block keeps a feature cache of its lanes:
+  the visual and inertial features of the window each slot holds, in the
+  encoders' float32 (the prototype's, computed once, where a slot holds
+  the prototype). A step runs the encoders only over the submitted lanes,
+  gathered on the device and padded with the first of them to the next
+  power of two at most the block's lanes (``training/loop.py::
+  encoder_bucket``; ``warmup`` runs every such batch once, so no step
+  builds a new plan), writes their features into the cache and runs the
+  pose core on the whole cache. So the pose core still steps every lane,
+  in lane order; an idle lane replays its slot's window from its cached
+  features and its carry is restored afterwards, so an idle session never
+  advances. Here the port differs on purpose from the JAX engine, whose
+  forward encodes every lane each step.
 * A fresh session gets a zeroed lane carry and its clock re-based to 0.
   Its first window starts cold, as the model does without a carry: for
   ode-rnn, rnn, cfc and ltc that is the zeroed carry itself; for cde/rde
@@ -37,10 +49,12 @@ Sessions are lanes of one fixed-size batch of ``max_sessions``:
   ``lanes.h2d`` (the copies to the device slots), the replicas'
   ``lanes.*`` spans and ``serve.carry`` (the lane mask and the poses on
   the host), and counts the lanes copied as
-  ``ode_vio.serve.lanes_staged`` (``utils/profiling.py::span``, ``count``).
+  ``ode_vio.serve.lanes_staged`` (``utils/profiling.py::span``,
+  ``count``); each replica counts the rows its encoders ran, padding
+  included, as ``ode_vio.serve.lanes_encoded``.
 * The lanes split over ``devices`` (default: the one ``device``) as
   equal contiguous blocks, one replica of the model per device with its
-  own carry and its own block of the lane batch
+  own carry and its own block of the lane batch and of the feature cache
   (``parallel/lanes.py::split_lanes``), where JAX shards the lane axis
   over a data mesh. Hard fusion's noise is drawn for every lane and
   sliced, so a session's poses do not depend on the split.
@@ -56,7 +70,7 @@ import torch
 from ode_vio_tpu_torch.config import resolve_device
 from ode_vio_tpu_torch.models.common import Carry
 from ode_vio_tpu_torch.parallel.lanes import split_lanes
-from ode_vio_tpu_torch.training.loop import make_infer_fn
+from ode_vio_tpu_torch.training.loop import encoder_bucket, make_infer_fn
 from ode_vio_tpu_torch.utils.profiling import count, span
 
 Window = Tuple[np.ndarray, np.ndarray, np.ndarray]  # (imgs, imus, ts)
@@ -118,6 +132,10 @@ class StreamingEngine:
         self._batch: Optional[Tuple[List[torch.Tensor], ...]] = None
         self._pinned: List[Optional[Tuple[torch.Tensor, ...]]] = []
         self._copied: List[Optional[List[torch.cuda.Event]]] = []
+        # the feature cache: per device, (visual, inertial) over its block
+        # of lanes, and the prototype's features (``_allocate``)
+        self._feats: List[Tuple[torch.Tensor, torch.Tensor]] = []
+        self._proto_feats: List[Tuple[torch.Tensor, torch.Tensor]] = []
 
     # -- session lifecycle -------------------------------------------------
     def open_session(self) -> int:
@@ -147,14 +165,18 @@ class StreamingEngine:
 
     def _fill(self, part: int, rows) -> None:
         """Slots ``rows`` (an index or a slice) of block ``part`` back to
-        the prototype."""
+        the prototype, and their rows of the feature cache to its
+        features."""
         with torch.inference_mode():
             for blocks, a in zip(self._batch, self._proto):
                 blocks[part][rows].copy_(torch.from_numpy(a).to(blocks[part].device))
+            for cache, f in zip(self._feats[part], self._proto_feats[part]):
+                cache[rows].copy_(f)
 
     def _allocate(self) -> None:
-        """The lane batch at the prototype's shapes, every slot at the
-        prototype; kept where its shapes already are the prototype's."""
+        """The lane batch at the prototype's shapes and the feature cache,
+        every slot at the prototype and every row at its features; kept
+        where the batch's shapes already are the prototype's."""
         shapes = [(self._per, *a.shape) for a in self._proto]
         if self._batch is None or [tuple(b[0].shape) for b in self._batch] != shapes:
             self._batch, self._pinned, self._copied = ([], [], []), [], []
@@ -168,6 +190,8 @@ class StreamingEngine:
                                               for shape in shapes) if cuda else None)
                     self._copied.append([torch.cuda.Event() for _ in range(self._per)]
                                         if cuda else None)
+                self._feats, self._proto_feats = self._infer.feature_cache(
+                    *(torch.from_numpy(a) for a in self._proto[:2]), self._per)
         for part in range(len(self._devices)):
             self._fill(part, slice(None))
 
@@ -247,16 +271,21 @@ class StreamingEngine:
         return {sid: poses[sid] for sid in windows}
 
     def warmup(self, proto: Window) -> None:
-        """Run the cold-start and the carried forward once on prototype
-        lanes shaped like ``proto`` (building the kernels and warming the
-        caches) without a trace: every slot of the lane batch is left at
-        the prototype, the carry stays unset and the counters are reset
-        afterwards."""
+        """Run the cold-start forward once with the encoders at every
+        bucket of submitted lanes, then the carried forward, on prototype
+        lanes shaped like ``proto`` (building the kernels and the
+        convolutions' plans and warming the caches) without a trace: every
+        slot of the lane batch is left at the prototype and every row of
+        the feature cache at its features, the carry stays unset and the
+        counters are reset afterwards."""
         self._set_proto(*proto)
         self._allocate()
-        inactive = np.zeros(self.N, bool)
-        _, carry = self._infer(*self._batch, None, active=inactive)
-        self._infer(*self._batch, carry, active=inactive)[0].cpu()
+        lanes = np.arange(self.N) % self._per
+        for k in sorted({encoder_bucket(n, self._per) for n in range(1, self._per + 1)}):
+            _, carry = self._infer(*self._batch, None, active=lanes < k)
+        self._infer(*self._batch, carry, active=np.zeros(self.N, bool))[0].cpu()
+        for part in range(len(self._devices)):
+            self._fill(part, slice(None))
         self._infer.reset_incomplete()
 
     def hidden(self, sid: int) -> Optional[Carry]:

@@ -59,6 +59,7 @@ from ode_vio_tpu_torch.models.encoders import ImageEncoder, share_batch_statisti
 from ode_vio_tpu_torch.models.fold import fold_batchnorm, fold_batchnorm_into_bias
 from ode_vio_tpu_torch.parallel.mesh import (Mesh, ModelSplit, gathered, model_split, replicate,
                                              split_parameters)
+from ode_vio_tpu_torch.utils.profiling import count
 
 
 def lr_for_epoch(cfg: Config, epoch: int) -> float:
@@ -429,9 +430,9 @@ def make_streaming_train_step(cfg: Config, *, device="cuda",
 
 def make_infer_fn(model: DeepVIO, state_dict: Optional[Dict[str, torch.Tensor]] = None,
                   fold_bn: bool = False, *, device="cuda") -> Callable:
-    """Build ``infer(img, imu, ts, carry=None, active=None, lanes=None) ->
-    (poses, carry)`` on ``device``: the cold-start call without a carry,
-    the carried call with one.
+    """Build ``infer(img, imu, ts, carry=None, active=None, lanes=None,
+    cold=None, features=None) -> (poses, carry)`` on ``device``: the
+    cold-start call without a carry, the carried call with one.
 
     The callable holds its own copy of the model, loaded from
     ``state_dict`` (default: ``model.state_dict()``). ``fold_bn=True``
@@ -456,6 +457,16 @@ def make_infer_fn(model: DeepVIO, state_dict: Optional[Dict[str, torch.Tensor]] 
     boolean lane mask given with a carry, starts those lanes afresh
     (``DeepVIO.cold_mask`` cores). ``infer.device`` is the device its
     inputs must be on.
+
+    ``features``, the serving engine's feature cache of the call's lanes
+    (visual ``(B, S-1, v_f_len)`` and inertial ``(B, S-1, i_f_len)``, as
+    the encoders emit them), runs the encoders over the ``active`` lanes
+    alone (every lane where ``active`` is None), gathered at the batch
+    :func:`encoder_bucket` gives, writes their features into the cache and
+    runs the pose core on the whole cache: an idle lane's row holds the
+    features of the window its slot holds. Without it the call runs the
+    whole batch through the encoders. ``infer.encode(img, imu)`` is the
+    two encoders alone, the inputs copied to ``infer.device``.
     """
     device = resolve_device(device)
     cfg = model.cfg
@@ -465,6 +476,34 @@ def make_infer_fn(model: DeepVIO, state_dict: Optional[Dict[str, torch.Tensor]] 
     fold = fold_batchnorm_into_bias if strip_bn else fold_batchnorm if fold_bn else dict
     sd = model.state_dict() if state_dict is None else state_dict
     return _infer_fn(cfg, model.solver, model.cde_solver, fold(sd), fold, device, {})
+
+
+def encoder_bucket(n: int, lanes: int) -> int:
+    """The rows the serving encoders run for ``n`` submitted of ``lanes``
+    lanes: the next power of two, at most ``lanes`` (0 for none), so that
+    a few batch shapes, all built while warming up, serve every step."""
+    return min(1 << (n - 1).bit_length(), lanes) if n else 0
+
+
+def _encode_lanes(net: DeepVIO, img, imu, features, active, device: torch.device) -> None:
+    """The encoders over the ``active`` lanes of ``img`` and ``imu`` (every
+    lane where None), into their rows of ``features``: the lanes gathered
+    on the device, padded with the first of them to their bucket, whose
+    rows are counted as ``ode_vio.serve.lanes_encoded``."""
+    fv, fi = features
+    lanes = fv.shape[0]
+    rows = np.arange(lanes) if active is None else np.flatnonzero(np.asarray(active))
+    n = len(rows)
+    if not n:
+        return
+    bucket = encoder_bucket(n, lanes)
+    count("ode_vio.serve.lanes_encoded", bucket)
+    pad = np.full(bucket - n, rows[0])
+    # a few bytes, staged at once: the host does not wait for the device
+    idx = torch.from_numpy(np.concatenate([rows, pad])).to(device, non_blocking=True)
+    v, i = net.encode(img.index_select(0, idx), imu.index_select(0, idx))
+    fv.index_copy_(0, idx[:n], v[:n])
+    fi.index_copy_(0, idx[:n], i[:n])
 
 
 def _infer_fn(cfg, solver, cde_solver, folded: Dict[str, torch.Tensor], fold: Callable,
@@ -486,13 +525,18 @@ def _infer_fn(cfg, solver, cde_solver, folded: Dict[str, torch.Tensor], fold: Ca
     hard = cfg.fuse_method == "hard"
 
     @torch.inference_mode()
-    def infer(img, imu, ts, carry=None, active=None, lanes=None, cold=None):
+    def infer(img, imu, ts, carry=None, active=None, lanes=None, cold=None, features=None):
         gen = None
         if hard:
             gen = torch.Generator(device).manual_seed(0)
             if lanes is not None:
                 gen = LaneDraws(gen, *lanes)
-        poses, carry, stats = net(img, imu, ts, carry, generator=gen, cold=cold)
+        if features is None:
+            poses, carry, stats = net(img, imu, ts, carry, generator=gen, cold=cold)
+        else:
+            _encode_lanes(net, img, imu, features, active, device)
+            poses, carry, stats = net.pose_from_features(*features, ts, carry, generator=gen,
+                                                         cold=cold)
         inc = stats.incomplete
         if active is not None:
             inc = inc * torch.as_tensor(np.asarray(active), device=device).to(inc.dtype)
@@ -515,6 +559,8 @@ def _infer_fn(cfg, solver, cde_solver, folded: Dict[str, torch.Tensor], fold: Ca
         None if counts[me]["lanes"] is None else counts[me]["lanes"].cpu().numpy())
     infer.reset_incomplete = reset_incomplete
     infer.set_variables = set_variables
+    infer.encode = torch.inference_mode()(
+        lambda img, imu: net.encode(img.to(device), imu.to(device)))
     infer.replicate = lambda dev: _infer_fn(cfg, solver, cde_solver, net.state_dict(), fold,
                                             resolve_device(dev), counts)
     infer.device = device

@@ -728,8 +728,9 @@ def test_two_ranks_share_the_card_on_gpu(no_tf32):
 @pytest.mark.gpu
 def test_engine_replicas_share_the_card_on_gpu(no_tf32):
     """chip_smoke.serve_mesh at tiny widths (seq_len 11, float32): 4
-    sessions over two replicas on cuda:0 against one engine: K1 10 a step
-    per replica, every session within 1e-5."""
+    sessions over two replicas on cuda:0 against an engine of each
+    replica's lanes alone and against one engine of all four: K1 10 a step
+    per replica, every session within 1e-5 of both."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     import chip_smoke
@@ -737,32 +738,102 @@ def test_engine_replicas_share_the_card_on_gpu(no_tf32):
 
     dev = torch.device("cuda", 0)
     cfg = Config(model=ModelConfig(**dict(TINY_TRAIN, seq_len=11)))
-    launches, gap, _, _ = chip_smoke.serve_mesh(dev, cfg, [dev, dev])
+    launches, gap, four_gap, _, _ = chip_smoke.serve_mesh(dev, cfg, [dev, dev])
     assert launches == len(chip_smoke.SCHEDULE) * 10 * 2
     assert gap <= chip_smoke.MESH_POSE_ATOL["float32"]
+    assert four_gap <= chip_smoke.MESH_POSE_ATOL["float32"]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("core", ["ode-rnn", "rnn"])
 def test_engine_resident_batch_on_gpu(core, no_tf32):
-    """The serving engine's lane batch resident on the card against
-    restaging every lane each step (tests/test_torch_port_serve_staging.py's
-    oracle and schedule: idle lanes, a closed and reopened lane): poses,
-    carry and batch bit for bit; its host slots pinned."""
+    """The serving engine's lane batch resident on the card and its feature
+    cache against restaging every lane each step and encoding each step's
+    submitted lanes as their own batch at their bucket
+    (tests/test_torch_port_serve_staging.py's ``Reencode`` and schedule:
+    idle lanes, a closed and reopened lane): poses, carry, batch and
+    feature cache bit for bit; its host slots pinned."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    from test_torch_port_serve_staging import TINY, Restage, serve_both
+    from test_torch_port_serve_staging import Reencode, serve_both, tiny_model
 
-    from ode_vio_tpu_torch.config import ModelConfig
-    from ode_vio_tpu_torch.models.deepvio import DeepVIO
     from ode_vio_tpu_torch.serving import StreamingEngine
 
-    torch.manual_seed(0)
-    model = DeepVIO(ModelConfig(model_type=core, **TINY))
+    model = tiny_model(core)
     sd = model.state_dict()
     engine = StreamingEngine(model, sd, max_sessions=4, device="cuda")
-    serve_both(engine, Restage(model, sd, 4, ["cuda"]))
+    serve_both(engine, Reencode(model, sd, 4, ["cuda"]))
     assert all(t.is_pinned() for block in engine._pinned for t in block)
+
+
+def flagship_engine(dtype):
+    """The flagship in ``dtype`` behind the engine at 8 lanes, warmed up,
+    its state dict, and windows at its shapes."""
+    from functools import partial
+
+    from test_torch_port_serve_staging import window
+
+    from ode_vio_tpu_torch.config import flagship_config
+    from ode_vio_tpu_torch.models.deepvio import create_model
+    from ode_vio_tpu_torch.serving import StreamingEngine
+
+    cfg = flagship_config()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, compute_dtype=dtype))
+    m = cfg.model
+    make = partial(window, s=m.seq_len, hw=(m.img_h, m.img_w))
+    model = create_model(cfg, seed=0, device="cuda")
+    sd = model.state_dict()
+    engine = StreamingEngine(model, sd, max_sessions=8, fold_bn=True, device="cuda")
+    engine.warmup(make(0, 0.0))
+    return model, sd, engine, make
+
+
+# float32, no TF32: the flagship engine's served poses and carry against
+# the all-lanes step over the staging schedule read 1.13e-6-1.65e-6 and
+# 2.53e-6-3.37e-6 over five weight and window seeds, on poses up to
+# 0.77-1.25 (H100 80GB HBM3). In bf16 the same comparison reads
+# 8.8e-4-1.2e-3 on the poses: bf16 convolutions round otherwise at other
+# batch sizes, so bf16 is held against the bucketed oracle instead.
+FLAGSHIP_F32_GAP = 1e-5
+
+
+@pytest.mark.gpu
+def test_flagship_engine_serves_like_the_all_lanes_step_on_gpu(no_tf32):
+    """The flagship in float32 behind the engine at 8 lanes, its encoders
+    over the submitted lanes at their bucket, against the all-lanes step
+    (tests/test_torch_port_serve_staging.py's ``Restage`` and schedule):
+    served poses and the carry within FLAGSHIP_F32_GAP, an idle lane's
+    carry untouched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from test_torch_port_serve_staging import Restage, steps
+
+    model, sd, engine, make = flagship_engine("float32")
+    oracle = Restage(model, sd, 8, ["cuda"])
+    axis, gap = model.carry_lane_axis, 0.0
+    for k, wins, got, want, before in steps(engine, oracle, make):
+        gap = max(gap, max(float(np.abs(got[ln] - want[ln]).max()) for ln in got),
+                  float((engine._carry[0] - oracle.carry[0]).abs().max()))
+        if before is not None:
+            idle = torch.tensor([ln for ln in range(8) if ln not in wins], device="cuda")
+            assert torch.equal(engine._carry[0].index_select(axis, idle),
+                               before[0].index_select(axis, idle)), f"step {k}"
+    print(f"flagship float32 engine against the all-lanes step: within {gap:.3e}")
+    assert gap <= FLAGSHIP_F32_GAP
+
+
+@pytest.mark.gpu
+def test_flagship_engine_serves_like_its_bucketed_oracle_on_gpu():
+    """The flagship as it serves (bf16 encoders, K1) behind the engine at 8
+    lanes against ``Reencode``, which encodes each step's submitted lanes
+    as their own batch at their bucket: poses, carry, lane batch and
+    feature cache bit for bit over the staging schedule."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from test_torch_port_serve_staging import Reencode, serve_both
+
+    model, sd, engine, make = flagship_engine("bfloat16")
+    serve_both(engine, Reencode(model, sd, 8, ["cuda"]), make)
 
 
 # one engine step under torch.profiler in a fresh process: late in a long
